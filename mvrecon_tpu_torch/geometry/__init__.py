@@ -1,0 +1,1 @@
+"""geometry of the PyTorch port (counterpart of mvrecon_tpu/geometry)."""

@@ -1,0 +1,274 @@
+"""Chunk-streamed bundle adjustment for the 100k-point regime.
+
+Counterpart of ``mvrecon_tpu/models/bundle_adjustment_chunked.py``, fused
+path: per LM retry one pass over point chunks builds the reduced camera
+system through ``ops/fused_schur.py`` (the K2 kernel on the card), one
+Cholesky solve gives the camera step, and a second pass back-substitutes
+each chunk's point update and sums the trial error. Only one chunk's
+derivative planes live at a time.
+
+The damping protocol, stopping rules and gauge are the JAX package's: the
+reference and Nielsen schedules with the c <= 1e25 / nu <= 1e12 clamps,
+``accept_divisor``, ``init_c``/``init_nu`` resume, ``jacobi_scaling``, and
+Kahan-compensated decision scalars. A damped system that is not positive
+definite gives a NaN step, which rejects the trial and raises the damping,
+as ``cho_factor``'s NaNs do there. The per-chunk scalars stay on the
+device; the host reads the accept flag once per retry.
+
+Robust losses, distortion and the sharded (``axis_name``) variant are not
+ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import LMConfig, as_tensor, resolve_device, result_dtype
+from ..ops.fused_schur import (
+    assemble_type_major,
+    finish_schur,
+    fused_backsub_chunk,
+    fused_chunk_update,
+    schur_acc_dim,
+    type_major_to_camera_major,
+)
+from .bundle_adjustment import (
+    BAResult,
+    BAState,
+    _apply_update,
+    _distorted_residual,
+    build_K,
+    calc_pqr,
+    gauge_mask,
+    intrinsics_from_K,
+    normalize_gauge,
+    restore_gauge,
+)
+
+
+def _kadd(acc, x):
+    """One Kahan compensated-summation step on a (sum, comp) pair: the LM
+    accept test and the Nielsen gain ratio read sums of per-chunk partials,
+    and compensation removes their accumulation-order noise."""
+    s, comp = acc
+    y = x - comp
+    t = s + y
+    return (t, (t - s) - y)
+
+
+def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c):
+    """Fused generate-and-reduce build over the chunks.
+
+    Returns (A', b', E_now, (diag_g, d_F), free_tm) in type-major layout."""
+    nf = cam.f.shape[0]
+    dt = x_ch[0].dtype
+    dev = x_ch[0].device
+    f_pad, n_acc = schur_acc_dim(nf)
+    acc = torch.zeros((n_acc, n_acc), dtype=dt, device=dev)
+    g = torch.zeros((nf, 9, 9), dtype=dt, device=dev)
+    d_f = torch.zeros((9 * nf,), dtype=dt, device=dev)
+    bp = torch.zeros((9, f_pad), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    e_acc = (zero, zero)
+    for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
+        acc, d_F, matG, e_chunk, b_p = fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0, c)
+        g = g + matG
+        d_f = d_f + d_F
+        e_acc = _kadd(e_acc, e_chunk)
+        bp = bp + b_p
+    d_f = d_f * free
+    a, b, free_tm = assemble_type_major(finish_schur(acc), bp.reshape(-1), g, d_f, free, c, nf, f_pad)
+    diag_g = torch.diagonal(g, dim1=-2, dim2=-1).reshape(-1)  # (9F,) undamped
+    return a, b, e_acc[0], (diag_g, d_f), free_tm
+
+
+def _backsub_and_trial(cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi):
+    """Per chunk: back-substitute the point update at the current state and
+    sum the trial error under the updated cameras.
+
+    Returns (X_new chunks, E_trial, dDd_pts, g_d_pts)."""
+    zero = torch.zeros((), dtype=x_ch[0].dtype, device=x_ch[0].device)
+    e_acc = dDd_acc = gd_acc = (zero, zero)
+    X_new = []
+    for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
+        X_n, e_c, dDd_c, gd_c = fused_backsub_chunk(
+            cam, trial_cam, X_c, x_c, vis_c, f0, c, delta_xi * free
+        )
+        X_new.append(X_n)
+        e_acc, dDd_acc, gd_acc = _kadd(e_acc, e_c), _kadd(dDd_acc, dDd_c), _kadd(gd_acc, gd_c)
+    return X_new, e_acc[0], dDd_acc[0], gd_acc[0]
+
+
+def _solve_cam(a: torch.Tensor, b: torch.Tensor, jacobi_scaling: bool) -> torch.Tensor:
+    """Damped camera solve by Cholesky. A factor that fails (the damped
+    system is not positive definite) yields a NaN step, so the trial is
+    rejected like any other. With ``jacobi_scaling`` the system is
+    symmetrically diag-scaled first."""
+    if jacobi_scaling:
+        s = torch.rsqrt(torch.diagonal(a))
+        a = a * (s[:, None] * s[None, :])
+        b = b * s
+    l, info = torch.linalg.cholesky_ex(a)
+    sol = torch.cholesky_solve(b[:, None], l)[:, 0]
+    sol = torch.where(info == 0, sol, torch.full_like(sol, float("nan")))
+    return sol * s if jacobi_scaling else sol
+
+
+def lm_optimize_chunked(
+    x: torch.Tensor,
+    state0: BAState,
+    vis: torch.Tensor,
+    free: torch.Tensor,
+    f0: float,
+    config: LMConfig,
+    chunk_size: int,
+    axis_name: str | None = None,
+    init_c=None,
+    init_nu=None,
+    dist=None,
+):
+    """Chunk-streamed LM with the dense core's protocol. Returns
+    (state, error, c, nu, n_iter, total_solver_retries, log): the log is
+    ``{"reprojection_error": (max_iter + 1,)}`` with ``config.record_log``
+    (zero past the last iteration), else None."""
+    if axis_name is not None:
+        raise NotImplementedError("the sharded chunked core is not ported yet")
+    if dist is not None:
+        raise NotImplementedError("distortion models are not ported yet")
+    if config.robust is not None:
+        raise NotImplementedError("robust losses are not ported yet")
+    npts = x.shape[0]
+    dt = x.dtype
+    dev = x.device
+    pad = (-npts) % chunk_size
+    X0 = state0.X
+    if pad:
+        x = torch.cat([x, torch.zeros((pad,) + x.shape[1:], dtype=dt, device=dev)])
+        vis = torch.cat([vis, torch.zeros((pad,) + vis.shape[1:], dtype=dt, device=dev)])
+        X0 = torch.cat([X0, X0.mean(dim=0).expand(pad, 3)])
+    x_ch = x.split(chunk_size)
+    vis_ch = vis.split(chunk_size)
+    cam = state0._replace(X=torch.zeros((0, 3), dtype=dt, device=dev))
+    X_ch = list(X0.split(chunk_size))
+
+    K0 = build_K(cam.f, cam.u, f0)
+    e_prev = torch.zeros((), dtype=dt, device=dev)
+    for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
+        _, p, q, r = calc_pqr(X_c, K0, cam.R, cam.t)
+        r = torch.where(vis_c > 0, r, torch.ones_like(r))
+        res_p, res_q = _distorted_residual(cam, p, q, r, x_c, f0)
+        e_prev = e_prev + torch.sum(vis_c * (res_p**2 + res_q**2))
+
+    log_e = [e_prev] if config.record_log else None
+    nielsen = config.damping == "nielsen"
+    nf = cam.f.shape[0]
+    f_pad, _ = schur_acc_dim(nf)
+    c = as_tensor(config.init_damping if init_c is None else init_c, dev, dt)
+    nu = as_tensor(2.0 if init_nu is None else init_nu, dev, dt)
+    n_iter = 0
+    n_retries = 0
+    while n_iter < config.max_iter:
+        accepted = False
+        tries = 0
+        e_base = e_prev
+        while not accepted and tries < config.max_inner_retries:
+            a, b, _, (diag_g, d_f), free_tm = _build_system_fused(
+                cam, X_ch, x_ch, vis_ch, free, f0, c
+            )
+            delta_tm = _solve_cam(a, b, config.jacobi_scaling) * free_tm
+            del a, b
+            delta_xi = type_major_to_camera_major(delta_tm, nf, f_pad)
+            trial_cam = _apply_update(cam, delta_xi, torch.zeros((0, 3), dtype=dt, device=dev))
+            X_trial, e_trial, dDd_pts, gd_pts = _backsub_and_trial(
+                cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi
+            )
+            acc_t = e_trial <= e_base
+            if nielsen:
+                dDd = dDd_pts + torch.sum(delta_xi * diag_g * delta_xi)
+                g_d = gd_pts + torch.sum(d_f * delta_xi)
+                pred = 0.5 * (c * dDd - g_d)
+                rho = (e_base - e_trial) / pred.clamp_min(1e-30)
+                shrink = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
+                c = torch.where(acc_t, c * shrink, c * nu).clamp_max(1e25)
+                nu = torch.where(acc_t, torch.full_like(nu, 2.0), (nu * 2.0).clamp_max(1e12))
+            else:
+                c = torch.where(acc_t, c, c * config.scale_factor)
+            tries += 1
+            # the one host read of the retry: accepted, and converged if so
+            accepted, done = torch.stack(
+                [acc_t, torch.abs(e_trial - e_base) <= config.delta_tol]
+            ).tolist()
+        if accepted:
+            cam, X_ch, e_new = trial_cam, X_trial, e_trial
+        else:  # never accepted (divergence/NaN): keep the state and stop
+            e_new, done = e_base, True
+        if not nielsen:
+            c = c / config.divisor
+        n_iter += 1
+        n_retries += tries
+        e_prev = e_new
+        if log_e is not None:
+            log_e.append(e_new)
+        if done:
+            break
+
+    X_full = torch.cat(X_ch)[:npts]
+    log = None
+    if log_e is not None:
+        log_t = torch.zeros((config.max_iter + 1,), dtype=dt, device=dev)
+        log_t[: len(log_e)] = torch.stack(log_e)
+        log = {"reprojection_error": log_t}
+    return cam._replace(X=X_full), e_prev, c, nu, n_iter, n_retries, log
+
+
+def bundle_adjust_chunked(
+    x,
+    init_X,
+    init_K,
+    init_R,
+    init_t,
+    f0: float = 1.0,
+    visibility=None,
+    axis: str = "x-right_z-forward",
+    config: LMConfig = LMConfig(),
+    chunk_size: int = 4096,
+    init_c=None,
+    init_nu=None,
+    distortion=None,
+    device=None,
+) -> BAResult:
+    """Bundle adjustment with an O(chunk) memory footprint for the
+    derivative planes. x (P, F, 2); the optional visibility is (P, F).
+    Runs on the card unless ``device`` says otherwise; the working dtype
+    is x's. The returned ``log`` carries the final damping (c, nu) so a
+    segmented run resumes through ``init_c``/``init_nu``."""
+    if distortion is not None or config.distortion_rounds > 0:
+        raise NotImplementedError("distortion models are not ported yet")
+    dev = resolve_device(device)
+    dt = result_dtype(x)
+    x = as_tensor(x, dev, dt)
+    npts, nf, _ = x.shape
+    if visibility is None:
+        # a (P, 1) column broadcasts through every masked reduction
+        vis = torch.ones((npts, 1), dtype=dt, device=dev)
+    else:
+        vis = as_tensor(visibility, dev, dt)
+        # masked observations may hold any value; zero them so 0 * nan
+        # cannot leak through the masked sums
+        x = torch.where(vis[..., None] > 0, x, 0.0)
+    X0, R0, t0, info = normalize_gauge(
+        as_tensor(init_X, dev, dt), as_tensor(init_R, dev, dt), as_tensor(init_t, dev, dt), axis
+    )
+    f_in, u_in = intrinsics_from_K(as_tensor(init_K, dev, dt), f0)
+    state0 = BAState(X=X0, f=f_in, u=u_in, t=t0, R=R0)
+    free = gauge_mask(nf, axis, dt, dev)
+
+    final, e, c_f, nu_f, n_iter, n_retries, scalar_log = lm_optimize_chunked(
+        x, state0, vis, free, f0, config, chunk_size, init_c=init_c, init_nu=init_nu,
+    )
+    Xg, Rg, tg = restore_gauge(info, final.X, final.R, final.t)
+    log = {"n_solver_retries": n_retries, "c": c_f, "nu": nu_f}
+    if scalar_log is not None:
+        log.update(scalar_log)
+    return BAResult(X=Xg, K=build_K(final.f, final.u, f0), R=Rg, t=tg, error=e,
+                    n_iter=n_iter, log=log)

@@ -1,0 +1,71 @@
+"""Builds the port's hand-written CUDA kernels at first use and loads them.
+
+Each source under ``mvrecon_tpu_torch/csrc/`` is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into a shared library with a plain C interface, in
+``build/kernels/`` at the repository root, and loaded with ``ctypes``. The
+library's file name carries a hash of the source and the flags, so an
+edited source is rebuilt and a current one is reused. Nothing is built
+when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+# kernel name -> source file under csrc/
+SOURCES = {"syrk_acc": "syrk_acc.cu"}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> float:
+    """Compile kernel ``name`` unless it is already built. Returns the
+    seconds taken; raises with the compiler's output if the build fails."""
+    start = time.perf_counter()
+    out = library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"kernel build of {name} failed: nvcc exited {proc.returncode}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    return time.perf_counter() - start
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build(name)
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

@@ -1,0 +1,88 @@
+"""Structural rules of the PyTorch port, checked on its sources:
+
+- no module of ``mvrecon_tpu_torch``, and neither ``chip_smoke.py`` nor
+  the port's scripts that run on the card, imports JAX or the JAX package (checked on the AST: the interpreter may have
+  JAX loaded already, so ``sys.modules`` proves nothing);
+- entry points run on the card by default and raise without one;
+- the kernel wrapper ``syrk_acc`` has no ``try`` around its launch and
+  takes the plain version only for CPU tensors.
+"""
+
+import ast
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "mvrecon_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py",
+    REPO / "scripts" / "profile_torch_ba.py",
+    REPO / "scripts" / "gpu_cpu_trajectory.py",
+]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(REPO)) for p in SOURCES])
+def test_no_jax_or_jax_package_import(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib"), f"{path.name} imports {mod}"
+        assert top != "mvrecon_tpu", f"{path.name} imports {mod}"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
+    from mvrecon_tpu_torch.models.perspective import perspective_self_calibration
+    from mvrecon_tpu_torch.models.pipelines import euclidean_reconstruction_large
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((4, 20, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        euclidean_reconstruction_large(x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        perspective_self_calibration(x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle_adjust_chunked(x.transpose(1, 0, 2), np.zeros((20, 3)), np.zeros((4, 3, 3)),
+                              np.zeros((4, 3, 3)), np.zeros((4, 3)))
+
+
+def _function(tree, name):
+    return next(n for n in ast.walk(tree)
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+def test_syrk_acc_launches_or_raises():
+    tree = ast.parse((PORT / "ops" / "fused_schur.py").read_text())
+    fn = _function(tree, "syrk_acc")
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    # the one call of the plain version sits under a test of the device
+    # type against "cpu"
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.If)
+             and any(isinstance(c, ast.Call) and getattr(c.func, "id", "") == "syrk_acc_reference"
+                     for s in n.body for c in ast.walk(s))]
+    assert len(calls) == 1
+    test_src = ast.unparse(calls[0].test)
+    assert 'device.type == "cpu"' in test_src.replace("'", '"')
+    assert "os.environ" not in ast.unparse(fn)
+
+
+def test_cli_runs_on_cpu(capsys):
+    from mvrecon_tpu_torch.__main__ import main
+
+    assert main(["euclidean-large", "--n-points", "100", "--n-images", "6",
+                 "--chunk-size", "64", "--max-iter", "2", "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["points"] == 100 and rec["views"] == 6 and rec["device"] == "cpu"
+    assert rec["calib_status"] == 0 and np.isfinite(rec["reprojection_error"])
