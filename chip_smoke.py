@@ -7,19 +7,26 @@ Phases, each of which stops the script with a non-zero exit on failure:
 
 1. header: the card's name and power limit, torch/CUDA versions, TF32
    switches (must be off);
-2. build: every hand-written kernel, from ``mvrecon_tpu_torch/csrc/``;
+2. build: every hand-written kernel, from ``mvrecon_tpu_torch/csrc/``,
+   one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with its time, the plain version's, one
-   PyTorch call's and the bound of the work;
+   the main paths' shapes, with its time, the plain version's, one
+   PyTorch call's and the bound of the work (K1 by both of its routes);
 4. pipeline: ``euclidean_reconstruction_large`` at 100k points x 1000
    views, float32, chunk 768, counting kernel launches on that run;
-5. the same pipeline on a small scene on the card and on the CPU (plain
-   versions), which must agree;
+4b. streamed: ``bundle_adjust_streamed`` at 1M points x 500 views from
+   host memory, float32, chunk 16384, prefetch 2, counting K1 launches,
+   with the time of each pass, the host-to-device rate and the peak
+   device memory, which must stay below the observations' 4.0 GB;
+5. the pipeline and the streamed core on a small scene on the card and on
+   the CPU (plain versions), which must agree, and the streamed core on
+   the card with prefetch 0 and 2, which must agree bit for bit;
 6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
-``--points``/``--ba-iters`` shrink phase 4 for a quick run; the views and
-the chunk stay at the north star's, so the kernel checks keep its shapes.
+``--points``/``--ba-iters`` shrink phase 4 and ``--streamed-points``
+phase 4b for a quick run; the views and the chunks stay the main paths',
+so the kernel checks keep their shapes.
 """
 
 from __future__ import annotations
@@ -33,11 +40,17 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM data sheet
+H100_3XTF32_FLOPS = 495e12 / 3  # float32-accurate rate: three TF32 products per product
+H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores, SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, SXM data sheet
 NOISE = 0.005  # image noise of the synthetic scenes
 VIEWS = 1000  # north-star views: the reduced camera system is 9 * 1000 wide
 CHUNK = 768  # north-star point chunk: K2's Y has 3 * 768 rows
+STREAMED_VIEWS = 500  # streamed design point: 1M points x 500 views
+STREAMED_CHUNK = 16384  # the streamed core's default chunk: K1's Y is (49152, 4500)
 # Phase 5 limits, from scripts/gpu_cpu_trajectory.py on an H100. From one
 # calibration, E after BA iterations 1 and 2 agreed to 7e-7 and 3.1e-6.
 # After 8 iterations the whole pipeline's E differed by 1.4e-3: the f32
@@ -76,7 +89,7 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def check_syrk_acc(torch, fs, k_rows: int, n: int, reps: int, seed: int) -> dict:
+def check_syrk_acc(torch, fs, sy, k_rows: int, n: int, reps: int, seed: int) -> dict:
     """K2 against its plain version: two accumulations onto a random acc,
     lower tiles within 1e-5 of the largest entry, upper tiles untouched;
     then the timings and the bound at this shape."""
@@ -90,7 +103,7 @@ def check_syrk_acc(torch, fs, k_rows: int, n: int, reps: int, seed: int) -> dict
     fs.syrk_acc_reference(want, y)
     fs.syrk_acc_reference(want, y)
     torch.cuda.synchronize()
-    lower = fs.lower_tile_mask(n, "cuda")
+    lower = sy.lower_tile_mask(n, "cuda")
     max_abs = float((got - want).abs().masked_fill(~lower, 0.0).max())
     rel = max_abs / float(want.abs().masked_fill(~lower, 0.0).max())
     upper_same = bool(torch.equal(got.masked_fill(lower, 0.0), acc0.masked_fill(lower, 0.0)))
@@ -118,10 +131,68 @@ def check_syrk_acc(torch, fs, k_rows: int, n: int, reps: int, seed: int) -> dict
     return rec
 
 
+def check_syrk_lower(torch, sy, k_rows: int, n: int, reps: int, seed: int) -> dict:
+    """K1 against its plain version by each route: lower tiles within 1e-5
+    of the largest entry, the mirrored product exactly symmetric; then the
+    timings of each route, the plain version, one float32
+    ``torch.matmul(y.t(), y)`` (TF32 off, the full square) and the bound
+    at this shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(k_rows, n, generator=gen, device="cuda")
+    want = sy.syrk_lower_reference(y)
+    n_pad = want.shape[0]
+    lower = sy.lower_tile_mask(n_pad, "cuda")
+    scale = float(want.abs().masked_fill(~lower, 0.0).max())
+    errs = {}
+    for route in sy.ROUTES:
+        got = sy.syrk_lower(y, route=route)
+        torch.cuda.synchronize()
+        errs[route] = float((got - want).abs().masked_fill(~lower, 0.0).max())
+        del got
+    full = sy.syrk(y)
+    symmetric = bool(torch.equal(full, full.T))
+    del want, full
+    for route, err in errs.items():
+        check(err / scale < 1e-5, f"syrk_lower {route} ({k_rows}, {n}) rel err {err / scale:.3e}")
+    check(symmetric, f"syrk ({k_rows}, {n}) is not exactly symmetric")
+
+    route_ms = {route: time_ms(torch, lambda r=route: sy.syrk_lower(y, route=r), reps)
+                for route in sy.ROUTES}
+    plain_ms = time_ms(torch, lambda: sy.syrk_lower_reference(y), max(1, reps // 4))
+    library_ms = time_ms(torch, lambda: torch.matmul(y.t(), y), reps)
+    pairs = (n_pad // sy.TILE) * (n_pad // sy.TILE + 1) // 2
+    flops = 2.0 * k_rows * sy.TILE * sy.TILE * pairs
+    nbytes = k_rows * n * 4.0 + pairs * sy.TILE * sy.TILE * 4.0
+    t_ops, t_bytes = flops / H100_3XTF32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    ms = route_ms[sy.ROUTE]
+    rec = {
+        "shape": [k_rows, n], "route": sy.ROUTE, "max_abs_err": errs[sy.ROUTE],
+        "max_rel_err": errs[sy.ROUTE] / scale, "max_rel_err_by_route":
+        {r: e / scale for r, e in errs.items()}, "symmetric": symmetric, "ms": ms,
+        "ms_by_route": route_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "simt_bound_ms": max(flops / H100_FP32_FLOPS * 1e3, t_bytes), "tflops": flops / ms / 1e9,
+    }
+    print("syrk_lower check " + json.dumps(rec), flush=True)
+    return rec
+
+
+def streamed_start(scene, seed: int):
+    """Host numpy (x (P, F, 2), X0, K, R, t0): the true K and R, X and t
+    perturbed by 0.02 N(0, 1) from a seeded generator."""
+    rng = np.random.default_rng(seed)
+    X, K, R, t = (a.cpu().numpy() for a in (scene.X, scene.K, scene.R, scene.t))
+    x = scene.x.transpose(0, 1).contiguous().cpu().numpy()
+    X0 = (X + 0.02 * rng.standard_normal(X.shape)).astype(X.dtype)
+    t0 = (t + 0.02 * rng.standard_normal(t.shape)).astype(t.dtype)
+    return x, X0, K, R, t0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--points", type=int, default=100_000)
     parser.add_argument("--ba-iters", type=int, default=8)
+    parser.add_argument("--streamed-points", type=int, default=1_000_000)
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
 
@@ -133,11 +204,13 @@ def main() -> int:
     from mvrecon_tpu_torch.config import LMConfig, resolve_device
     from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
     from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
+    from mvrecon_tpu_torch.models.bundle_adjustment_streamed import bundle_adjust_streamed
     from mvrecon_tpu_torch.models.perspective import perspective_self_calibration
     from mvrecon_tpu_torch.models.pipelines import euclidean_reconstruction_large
     from mvrecon_tpu_torch.ops import _cuda_build
     from mvrecon_tpu_torch.ops import fused_schur as fs
-    from mvrecon_tpu_torch.runtime.profiling import StageTimer
+    from mvrecon_tpu_torch.ops import syrk as sy
+    from mvrecon_tpu_torch.runtime.profiling import EventTimer, StageTimer
 
     # 1. header
     smi = nvidia_smi_line()
@@ -150,14 +223,17 @@ def main() -> int:
     check(tf32 == (False, False), "TF32 is on")
 
     # 2. build
-    build_s = _cuda_build.build("syrk_acc")
-    print(f"build: {build_s:.2f} s for syrk_acc", flush=True)
+    build_s = _cuda_build.build()
+    print(f"build: {build_s:.2f} s for {', '.join(_cuda_build.SOURCES)}", flush=True)
 
     # 3. kernels against their plain versions, at the north-star chunk
     # (Y (3 * 768, 9 * 1024)) and at the small device-test shape
     _, n_acc = fs.schur_acc_dim(VIEWS)
-    k2 = check_syrk_acc(torch, fs, 3 * CHUNK, n_acc, args.reps, seed=0)
-    check_syrk_acc(torch, fs, 384, 9 * 512, args.reps, seed=1)
+    k2 = check_syrk_acc(torch, fs, sy, 3 * CHUNK, n_acc, args.reps, seed=0)
+    check_syrk_acc(torch, fs, sy, 384, 9 * 512, args.reps, seed=1)
+    # K1 at the streamed chunk, Y (3 * 16384, 9 * 500), and at an unaligned shape
+    k1 = check_syrk_lower(torch, sy, 3 * STREAMED_CHUNK, 9 * STREAMED_VIEWS, args.reps, seed=2)
+    check_syrk_lower(torch, sy, 300, 1000, args.reps, seed=3)
 
     # 4. the pipeline at full width
     config = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=args.ba_iters,
@@ -205,6 +281,62 @@ def main() -> int:
     check(launches == retries * n_chunks > 0,
           f"syrk_acc launches {launches} != retries {retries} x chunks {n_chunks}")
 
+    # 4b. the host-streamed BA at full width: 1M points x 500 views, the
+    # (P, F, 2) observations in host memory
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    scene = make_synthetic_scene(gen, n_images=STREAMED_VIEWS,
+                                 n_slices=args.streamed_points // 20, n_angles=20,
+                                 dtype=torch.float32)
+    x_host, X0, K0, R0, t0 = streamed_start(scene, seed=4)
+    del scene
+    torch.cuda.empty_cache()
+    n_points = x_host.shape[0]
+    s_cfg = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s_timer = EventTimer()
+    sy.reset_launch_counts()
+    start = time.perf_counter()
+    s_res = bundle_adjust_streamed(x_host, X0, K0, R0, t0, axis="x-up_z-forward", config=s_cfg,
+                                   chunk_size=STREAMED_CHUNK, prefetch=2, timer=s_timer)
+    s_err = float(s_res.error)
+    torch.cuda.synchronize()
+    s_wall = time.perf_counter() - start
+    k1_launches = sy.launch_counts["syrk_lower"]
+    s_peak = torch.cuda.max_memory_allocated()
+    spans = s_timer.ms()
+    s_retries = s_res.log["n_solver_retries"]
+    s_chunks = math.ceil(n_points / STREAMED_CHUNK)
+    pass_bytes = s_chunks * STREAMED_CHUNK * (STREAMED_VIEWS * 2 + 1) * 4
+    n_passes = 1 + 2 * s_retries  # the starting error, then two per retry
+    h2d_ms = sum(spans["h2d"])
+    s_floor = n_points * STREAMED_VIEWS * 2 * NOISE**2
+    streamed = {
+        "points": n_points, "views": STREAMED_VIEWS, "chunk": STREAMED_CHUNK, "prefetch": 2,
+        "chunks": s_chunks, "wall_s": s_wall, "n_iter": s_res.n_iter, "retries": s_retries,
+        "pass1_ms": spans["pass1"], "pass2_ms": spans["pass2"],
+        "h2d_bytes_per_pass": pass_bytes, "h2d_copies": len(spans["h2d"]),
+        "h2d_busy_ms": h2d_ms, "h2d_GB_per_s": n_passes * pass_bytes / h2d_ms / 1e6,
+        "pass1_GB_per_s": [pass_bytes / t / 1e6 for t in spans["pass1"]],
+        "syrk_lower_launches": k1_launches, "syrk_lower_ms_total": k1_launches * k1["ms"],
+        "reprojection_error": s_err, "E_vs_noise_floor": s_err / s_floor,
+        "max_memory_allocated_gb": s_peak / 1e9, "observations_gb": x_host.nbytes / 1e9,
+    }
+    if args.streamed_points < 1_000_000:
+        print(f"streamed BA cut to {n_points} points x {STREAMED_VIEWS} views by arguments")
+    print("streamed " + json.dumps(streamed), flush=True)
+    x_nbytes = x_host.nbytes
+    del s_res, x_host, X0
+    check(math.isfinite(s_err), "streamed E is not finite")
+    check(streamed["E_vs_noise_floor"] < 1.5,
+          f"streamed E / noise floor {streamed['E_vs_noise_floor']:.3f}")
+    check(k1_launches == s_retries * s_chunks > 0,
+          f"syrk_lower launches {k1_launches} != retries {s_retries} x chunks {s_chunks}")
+    # the per-chunk peak does not scale with P: the check is the design point's
+    if args.streamed_points >= 1_000_000:
+        check(s_peak < x_nbytes, f"streamed peak device memory {s_peak / 1e9:.2f} GB is not "
+              f"below the observations' {x_nbytes / 1e9:.2f} GB")
+
     # 5. the card against the CPU (plain versions) on a small scene: the
     # whole pipeline on each, then BA on each from one calibration
     small = make_synthetic_scene(torch.Generator().manual_seed(1), n_images=12,
@@ -242,6 +374,33 @@ def main() -> int:
           f"same-start E after iterations 1-2 differs by {early_rel} (limit {EARLY_ITER_RTOL})")
     check(gpu_launches > 0, "small scene on the card did not launch syrk_acc")
 
+    # the streamed core on the same small scene: the card against the CPU
+    # from one start, and the card's prefetch depths against each other
+    small_start = streamed_start(small, seed=5)
+    s_early = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=2)
+    sy.reset_launch_counts()
+    runs = {(dev, depth): bundle_adjust_streamed(*small_start, axis="x-up_z-forward",
+                                                 config=s_early, chunk_size=128,
+                                                 prefetch=depth, device=dev)
+            for dev, depth in (("cuda", 2), ("cuda", 0), ("cpu", 2))}
+    k1_small = sy.launch_counts["syrk_lower"]
+    r_g, r_s, r_c = runs["cuda", 2], runs["cuda", 0], runs["cpu", 2]
+    s_rel = abs(float(r_g.error) - float(r_c.error)) / float(r_c.error)
+    same_bits = (float(r_g.error) == float(r_s.error)) and bool(torch.equal(r_g.X, r_s.X))
+    small_streamed = {
+        "E_gpu": float(r_g.error), "E_cpu": float(r_c.error), "E_rel_diff": s_rel,
+        "rtol": EARLY_ITER_RTOL, "n_iter_gpu": r_g.n_iter, "n_iter_cpu": r_c.n_iter,
+        "retries_gpu": r_g.log["n_solver_retries"], "retries_cpu": r_c.log["n_solver_retries"],
+        "prefetch_0_vs_2_bit_identical": same_bits, "syrk_lower_launches_gpu": k1_small,
+    }
+    print("streamed_gpu_vs_cpu " + json.dumps(small_streamed), flush=True)
+    check(s_rel < EARLY_ITER_RTOL, f"small streamed E differs by {s_rel:.3e}")
+    check(r_g.n_iter == r_c.n_iter, "small streamed BA iterations differ")
+    check(r_g.log["n_solver_retries"] == r_c.log["n_solver_retries"],
+          "small streamed BA retries differ")
+    check(same_bits, "streamed results differ between prefetch 0 and 2")
+    check(k1_small > 0, "small streamed BA on the card did not launch syrk_lower")
+
     # 6. result lines
     kernels = [{
         "name": "syrk_acc", "route": "cuda", "source": "mvrecon_tpu_torch/csrc/syrk_acc.cu",
@@ -250,6 +409,14 @@ def main() -> int:
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
         "tolerance_rel": 1e-5, "shape": k2["shape"],
+    }, {
+        "name": "syrk_lower", "route": "cuda", "source": "mvrecon_tpu_torch/csrc/syrk_lower.cu",
+        "replaces": "mvrecon_tpu/ops/pallas_syrk.py:42",
+        "launches": k1_launches, "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"], "simt_bound_ms": k1["simt_bound_ms"],
+        "kernel_route": k1["route"], "ms_by_route": k1["ms_by_route"],
+        "max_rel_err": k1["max_rel_err"], "tolerance_rel": 1e-5, "shape": k1["shape"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

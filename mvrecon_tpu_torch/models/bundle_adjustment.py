@@ -5,7 +5,8 @@ that the chunked core needs: the state and result tuples, the 7-DoF gauge
 (camera-0 pose plus one baseline component, kept as a mask over the full
 9F parameter vector), the projective-scale K normalization
 (``intrinsics_from_K``, docs/PARITY.md #6), the homogeneous projection
-(p, q, r) and the parameter update. The dense LM core is not ported yet.
+(p, q, r), the camera-parameter derivatives and the parameter update.
+The dense LM core is not ported yet.
 """
 
 from __future__ import annotations
@@ -109,6 +110,39 @@ def calc_pqr(X: torch.Tensor, K: torch.Tensor, R: torch.Tensor, t: torch.Tensor)
     pmat = K @ torch.cat([rt, trans[..., None]], dim=-1)
     pqr = torch.einsum("fca,pa->pfc", pmat[:, :, :3], X) + pmat[None, :, :, 3]
     return pmat, pqr[..., 0], pqr[..., 1], pqr[..., 2]
+
+
+def _camera_param_derivs(state: BAState, p: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
+                         f0: float):
+    """(dp, dq, dr)/d(f, u0, v0, t, omega): (P, F, 9) each, for the points
+    ``state.X`` (P, 3)."""
+    f, u, t, R, X = state.f, state.u, state.t, state.R, state.X
+    shape = p.shape
+
+    # d/df
+    dpdf = (p - (u[:, 0] / f0)[None] * r) / f[None]
+    dqdf = (q - (u[:, 1] / f0)[None] * r) / f[None]
+    zeros = torch.zeros_like(dpdf)
+    # d/du
+    r_over_f0 = r / f0
+    # d/dt: per-image constants, broadcast
+    dpdt_f = -(f[:, None] * R[:, :, 0] + u[:, :1] * R[:, :, 2])  # (F, 3)
+    dqdt_f = -(f[:, None] * R[:, :, 1] + u[:, 1:2] * R[:, :, 2])
+    drdt_f = -f0 * R[:, :, 2]
+    # d/domega = cross(-d/dt, X - t)
+    x_minus_t = X[:, None, :] - t[None, :, :]  # (P, F, 3)
+
+    def stack(df, du0, du1, dt_f):
+        out = torch.empty(shape + (9,), dtype=p.dtype, device=p.device)
+        out[..., 0] = df
+        out[..., 1] = du0
+        out[..., 2] = du1
+        out[..., 3:6] = dt_f[None]
+        out[..., 6:9] = torch.linalg.cross(-dt_f[None], x_minus_t)
+        return out
+
+    return (stack(dpdf, r_over_f0, zeros, dpdt_f), stack(dqdf, zeros, r_over_f0, dqdt_f),
+            stack(zeros, zeros, zeros, drdt_f))
 
 
 def _apply_update(state: BAState, delta_xi: torch.Tensor, delta_x: torch.Tensor) -> BAState:

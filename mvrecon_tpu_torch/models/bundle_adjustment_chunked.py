@@ -15,6 +15,11 @@ definite gives a NaN step, which rejects the trial and raises the damping,
 as ``cho_factor``'s NaNs do there. The per-chunk scalars stay on the
 device; the host reads the accept flag once per retry.
 
+The non-fused per-chunk blocks (``_chunk_factors``, ``_point_grad_and_block``,
+``_chunk_blocks``) serve the host-streamed core
+(``bundle_adjustment_streamed.py``); the non-fused build over them waits
+for the distortion slice.
+
 Robust losses, distortion and the sharded (``axis_name``) variant are not
 ported yet and raise ``NotImplementedError``.
 """
@@ -36,6 +41,7 @@ from .bundle_adjustment import (
     BAResult,
     BAState,
     _apply_update,
+    _camera_param_derivs,
     _distorted_residual,
     build_K,
     calc_pqr,
@@ -44,6 +50,84 @@ from .bundle_adjustment import (
     normalize_gauge,
     restore_gauge,
 )
+
+
+def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float):
+    """Rank-2 Jacobian factors for one point chunk: every second-derivative
+    block is 2 * vis * (a1 (x) b1 + a2 (x) b2), so downstream stages work
+    from (a1, a2 (C, F, 3); b1, b2 (C, F, 9); residuals) without
+    materializing the blocks they don't need. Undistorted model, plain
+    least squares. Returns (a1, a2, b1, b2, res_p, res_q, vis_c)."""
+    st = state_cam._replace(X=X_c)
+    K = build_K(st.f, st.u, f0)
+    pmat, p, q, r = calc_pqr(X_c, K, st.R, st.t)
+
+    dpdX, dqdX, drdX = pmat[:, 0, :3], pmat[:, 1, :3], pmat[:, 2, :3]
+    dpdc, dqdc, drdc = _camera_param_derivs(st, p, q, r, f0)
+
+    r = torch.where(vis_c > 0, r, torch.ones_like(r))  # 0 * inf guard (padding)
+    res_p = p / r - x_c[..., 0] / f0
+    res_q = q / r - x_c[..., 1] / f0
+
+    inv_r2 = (1.0 / (r * r))[..., None]
+    r_, p_, q_ = r[..., None], p[..., None], q[..., None]
+    a1 = (r_ * dpdX[None] - p_ * drdX[None]) * inv_r2
+    a2 = (r_ * dqdX[None] - q_ * drdX[None]) * inv_r2
+    # (C, F, 9) planes, built in place and freed as soon as they are used:
+    # the derivative planes are the chunk's largest temporaries
+    b1 = dpdc.mul_(r_).sub_(p_ * drdc).mul_(inv_r2)
+    del dpdc
+    b2 = dqdc.mul_(r_).sub_(q_ * drdc).mul_(inv_r2)
+    del dqdc, drdc
+    return a1, a2, b1, b2, res_p, res_q, vis_c
+
+
+def _point_grad_and_block(a1, a2, res_p, res_q, vis_c):
+    """d_P (C, 3) and matE (C, 3, 3) from the factors (with the unseen-
+    point identity guard), each a contraction over the camera axis."""
+    vis_d = vis_c.expand(res_p.shape)
+    d_P = 2.0 * (torch.einsum("pf,pfx->px", vis_d * res_p, a1)
+                 + torch.einsum("pf,pfx->px", vis_d * res_q, a2))
+    visf = vis_d[..., None]
+    matE = 2.0 * (torch.einsum("pfi,pfj->pij", visf * a1, a1)
+                  + torch.einsum("pfi,pfj->pij", visf * a2, a2))
+    seen = (torch.sum(vis_d, dim=1) > 0).to(matE.dtype)
+    matE = matE + (1.0 - seen)[:, None, None] * torch.eye(3, dtype=matE.dtype, device=matE.device)
+    return d_P, matE
+
+
+def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float):
+    """Derivative blocks for one point chunk (C points): d_P (C, 3), the
+    masked d_F (9F,), matE (C, 3, 3), matF (C, 3, 9F), matG (F, 9, 9) and
+    the chunk's error.
+
+    Each sum over points is written as a contraction over the point axis
+    (a batched product over cameras), and matF is written once in place,
+    so no (C, F, 9, 9) or per-term (C, 3, F, 9) temporary exists."""
+    nf = state_cam.f.shape[0]
+    npts_c = X_c.shape[0]
+    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(state_cam, X_c, x_c, vis_c, f0)
+    vis_d = vis_c.expand(res_p.shape)
+    e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2))
+
+    d_F = 2.0 * (torch.einsum("pf,pfj->fj", vis_d * res_p, b1)
+                 + torch.einsum("pf,pfj->fj", vis_d * res_q, b2))
+    d_F = d_F.reshape(9 * nf) * free
+
+    d_P, matE = _point_grad_and_block(a1, a2, res_p, res_q, vis_c)
+
+    visf = vis_d[..., None]
+    matG = 2.0 * (torch.einsum("pfi,pfj->fij", visf * b1, b1)
+                  + torch.einsum("pfi,pfj->fij", visf * b2, b2))
+    # matF[p, i, f, j] = 2 vis (a1[p, f, i] b1[p, f, j] + a2[p, f, i] b2[p, f, j])
+    va1, va2 = (2.0 * visf) * a1, (2.0 * visf) * a2
+    matF = torch.empty((npts_c, 3, nf, 9), dtype=b1.dtype, device=b1.device)
+    for i in range(3):
+        torch.mul(va1[..., i:i + 1], b1, out=matF[:, i])
+        matF[:, i].addcmul_(va2[..., i:i + 1], b2)
+    # no free-mask multiply: the assembled system is gauge-projected and
+    # delta_xi is masked after the solve
+    return d_P, d_F, matE, matF.view(npts_c, 3, 9 * nf), matG, e_chunk
 
 
 def _kadd(acc, x):

@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # kernel name -> source file under csrc/
-SOURCES = {"syrk_acc": "syrk_acc.cu"}
+SOURCES = {"syrk_acc": "syrk_acc.cu", "syrk_lower": "syrk_lower.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -43,22 +43,31 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> float:
-    """Compile kernel ``name`` unless it is already built. Returns the
-    seconds taken; raises with the compiler's output if the build fails."""
+def build(*names: str) -> float:
+    """Compile the named kernels (all of them by default) unless they are
+    already built, one ``nvcc`` per source, all started together. Returns
+    the seconds taken; raises with the compiler's output if a build
+    fails."""
     start = time.perf_counter()
-    out = library_path(name)
-    if not out.exists():
+    jobs = []
+    for name in names or tuple(SOURCES):
+        out = library_path(name)
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, out))
+    failures = []
+    for name, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"kernel build of {name} failed: nvcc exited {proc.returncode}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
+            failures.append(f"kernel build of {name} failed: nvcc exited {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
     return time.perf_counter() - start
 
 

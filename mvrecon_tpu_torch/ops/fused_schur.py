@@ -28,8 +28,7 @@ import torch
 
 from ..models.bundle_adjustment import _distorted_residual, build_K, calc_pqr
 from .linalg import chol3x3, inv_lower3
-
-TILE = 512
+from .syrk import TILE, mirror_lower
 
 # launches of each kernel of this module since the last reset
 launch_counts = {"syrk_acc": 0}
@@ -48,13 +47,6 @@ def schur_acc_dim(nf: int) -> tuple[int, int]:
     """(f_pad, n_acc): per-type padded camera count and accumulator side."""
     f_pad = _round_up(nf, TILE)
     return f_pad, 9 * f_pad
-
-
-def lower_tile_mask(n: int, device=None, strict: bool = False) -> torch.Tensor:
-    """(n, n) bool: True where the 512-tile row index is >= (or > with
-    ``strict``) the tile column index."""
-    tile = torch.arange(n, device=device) // TILE
-    return tile[:, None] > tile[None, :] if strict else tile[:, None] >= tile[None, :]
 
 
 def syrk_acc_reference(acc: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -109,9 +101,7 @@ def syrk_acc(acc: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def finish_schur(acc: torch.Tensor) -> torch.Tensor:
     """Mirror the accumulated lower tiles into the full symmetric
     (9 Fp, 9 Fp) type-major sum Fᵀ E⁻¹ F."""
-    n = acc.shape[0]
-    lo = torch.where(lower_tile_mask(n, acc.device), acc, 0.0)
-    return lo + torch.where(lower_tile_mask(n, acc.device, strict=True), lo, 0.0).T
+    return mirror_lower(acc, acc.shape[0])
 
 
 def type_major_free(free: torch.Tensor, nf: int, f_pad: int) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Wall-clock stage timer.
+"""Stage and span timers.
 
-Counterpart of ``StageTimer`` in ``mvrecon_tpu/runtime/profiling.py``. A
-stage's wall is taken between two device synchronizations, so it holds
-the device work the stage queued.
+``StageTimer`` is the counterpart of ``StageTimer`` in
+``mvrecon_tpu/runtime/profiling.py``: a stage's wall is taken between two
+device synchronizations, so it holds the device work the stage queued.
+``EventTimer`` records spans of device time with CUDA events and reads
+them after the run, so a timed loop gains no synchronization.
 """
 
 from __future__ import annotations
@@ -34,3 +36,25 @@ class StageTimer:
             yield
         self._sync()
         self.times[name] = time.perf_counter() - start
+
+
+class EventTimer:
+    """Named spans of device time on the card. Each span is a pair of CUDA
+    events recorded on the calling thread's current stream; ``ms`` waits
+    for the card once and returns every span's milliseconds by name."""
+
+    def __init__(self):
+        self._spans: dict[str, list[tuple[torch.cuda.Event, torch.cuda.Event]]] = {}
+
+    @contextlib.contextmanager
+    def span(self, name: str) -> Iterator[None]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self._spans.setdefault(name, []).append((start, end))
+
+    def ms(self) -> dict[str, list[float]]:
+        torch.cuda.synchronize()
+        return {k: [a.elapsed_time(b) for a, b in v] for k, v in self._spans.items()}

@@ -4,8 +4,8 @@
   the port's scripts that run on the card, imports JAX or the JAX package (checked on the AST: the interpreter may have
   JAX loaded already, so ``sys.modules`` proves nothing);
 - entry points run on the card by default and raise without one;
-- the kernel wrapper ``syrk_acc`` has no ``try`` around its launch and
-  takes the plain version only for CPU tensors.
+- the kernel wrappers ``syrk_acc`` and ``syrk_lower`` have no ``try``
+  around their launch and take the plain version only for CPU tensors.
 """
 
 import ast
@@ -21,6 +21,8 @@ PORT = REPO / "mvrecon_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "scripts" / "profile_torch_ba.py",
+    REPO / "scripts" / "profile_torch_streamed.py",
+    REPO / "scripts" / "tune_syrk_lower_steps.py",
     REPO / "scripts" / "gpu_cpu_trajectory.py",
 ]
 
@@ -63,19 +65,36 @@ def _function(tree, name):
                 if isinstance(n, ast.FunctionDef) and n.name == name)
 
 
-def test_syrk_acc_launches_or_raises():
-    tree = ast.parse((PORT / "ops" / "fused_schur.py").read_text())
-    fn = _function(tree, "syrk_acc")
+def _assert_launches_or_raises(module, wrapper, reference):
+    tree = ast.parse((PORT / "ops" / module).read_text())
+    fn = _function(tree, wrapper)
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     # the one call of the plain version sits under a test of the device
     # type against "cpu"
     calls = [n for n in ast.walk(fn) if isinstance(n, ast.If)
-             and any(isinstance(c, ast.Call) and getattr(c.func, "id", "") == "syrk_acc_reference"
+             and any(isinstance(c, ast.Call) and getattr(c.func, "id", "") == reference
                      for s in n.body for c in ast.walk(s))]
     assert len(calls) == 1
     test_src = ast.unparse(calls[0].test)
     assert 'device.type == "cpu"' in test_src.replace("'", '"')
     assert "os.environ" not in ast.unparse(fn)
+
+
+def test_syrk_acc_launches_or_raises():
+    _assert_launches_or_raises("fused_schur.py", "syrk_acc", "syrk_acc_reference")
+
+
+def test_syrk_lower_launches_or_raises():
+    _assert_launches_or_raises("syrk.py", "syrk_lower", "syrk_lower_reference")
+
+
+def test_streamed_entry_point_defaults_to_the_card(monkeypatch):
+    from mvrecon_tpu_torch.models.bundle_adjustment_streamed import bundle_adjust_streamed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle_adjust_streamed(np.zeros((20, 4, 2)), np.zeros((20, 3)), np.zeros((4, 3, 3)),
+                               np.zeros((4, 3, 3)), np.zeros((4, 3)))
 
 
 def test_cli_runs_on_cpu(capsys):

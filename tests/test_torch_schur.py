@@ -16,6 +16,7 @@ from mvrecon_tpu.models.bundle_adjustment import normalize_gauge as j_normalize_
 from mvrecon_tpu.ops import pallas_schur as jps
 from mvrecon_tpu_torch.interop import ba_state_from_numpy
 from mvrecon_tpu_torch.ops import fused_schur as tps
+from mvrecon_tpu_torch.ops.syrk import lower_tile_mask
 
 
 @pytest.fixture
@@ -42,7 +43,7 @@ def test_syrk_acc_reference_matches_jax_kernel(interpret):
     y_t = torch.from_numpy(y).to(torch.bfloat16)
     tps.syrk_acc(tps.syrk_acc(acc_t, y_t), y_t)
 
-    lower = tps.lower_tile_mask(n_acc).numpy()
+    lower = lower_tile_mask(n_acc).numpy()
     want = np.asarray(acc_j)[lower]
     got = acc_t.numpy()[lower]
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
@@ -55,7 +56,7 @@ def test_syrk_acc_cpu_keeps_upper_tiles_and_counts_no_launch():
     y = torch.from_numpy(_bf16_y(40, n, seed=4)).to(torch.bfloat16)
     tps.reset_launch_counts()
     acc = tps.syrk_acc(acc0.clone(), y)
-    upper = ~tps.lower_tile_mask(n)
+    upper = ~lower_tile_mask(n)
     assert torch.equal(acc[upper], acc0[upper])
     y32 = y.float()
     lower = ~upper
