@@ -11,7 +11,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time, the plain version's, one
-   PyTorch call's and the bound of the work (K1 by both of its routes);
+   PyTorch call's and the bound of the work;
 4. pipeline: ``euclidean_reconstruction_large`` at 100k points x 1000
    views, float32, chunk 768, counting kernel launches on that run;
 4b. streamed: ``bundle_adjust_streamed`` at 1M points x 500 views from
@@ -131,45 +131,50 @@ def check_syrk_acc(torch, fs, sy, k_rows: int, n: int, reps: int, seed: int) -> 
     return rec
 
 
-def check_syrk_lower(torch, sy, k_rows: int, n: int, reps: int, seed: int) -> dict:
-    """K1 against its plain version by each route: lower tiles within 1e-5
-    of the largest entry, the mirrored product exactly symmetric; then the
-    timings of each route, the plain version, one float32
-    ``torch.matmul(y.t(), y)`` (TF32 off, the full square) and the bound
-    at this shape."""
+def syrk_lower_work(k_rows: int, n: int) -> tuple[float, float]:
+    """(FLOP, bytes) that K1's function needs for Y (k_rows, n): the
+    element-wise lower triangle of YᵀY, which is all that ``mirror_lower``
+    reads, over the real columns (2 k_rows FLOP for each of its
+    n (n + 1) / 2 entries); Y read once and that triangle written once."""
+    entries = n * (n + 1) / 2
+    return 2.0 * k_rows * entries, (k_rows * n + entries) * 4.0
+
+
+def check_syrk_lower(torch, sy, k_rows: int, n: int, reps: int, seed: int,
+                     ld: int | None = None) -> dict:
+    """K1 against its plain version: lower tiles within 1e-5 of the largest
+    entry, the mirrored product exactly symmetric; then the timings of the
+    kernel, the plain version, one float32 ``torch.matmul(y.t(), y)`` (TF32
+    off, the full square) and the bound at this shape. With ``ld``, Y is
+    the (k_rows, n) view of rows ld floats apart whose other columns hold
+    noise the kernel must not read. The kernel is also timed on a
+    contiguous copy of Y."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    y = torch.randn(k_rows, n, generator=gen, device="cuda")
+    y = torch.randn(k_rows, ld or n, generator=gen, device="cuda")[:, :n]
     want = sy.syrk_lower_reference(y)
-    n_pad = want.shape[0]
-    lower = sy.lower_tile_mask(n_pad, "cuda")
+    lower = sy.lower_tile_mask(want.shape[0], "cuda")
     scale = float(want.abs().masked_fill(~lower, 0.0).max())
-    errs = {}
-    for route in sy.ROUTES:
-        got = sy.syrk_lower(y, route=route)
-        torch.cuda.synchronize()
-        errs[route] = float((got - want).abs().masked_fill(~lower, 0.0).max())
-        del got
+    got = sy.syrk_lower(y)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().masked_fill(~lower, 0.0).max())
     full = sy.syrk(y)
     symmetric = bool(torch.equal(full, full.T))
-    del want, full
-    for route, err in errs.items():
-        check(err / scale < 1e-5, f"syrk_lower {route} ({k_rows}, {n}) rel err {err / scale:.3e}")
+    del got, want, full
+    check(err / scale < 1e-5, f"syrk_lower ({k_rows}, {n}) rel err {err / scale:.3e}")
     check(symmetric, f"syrk ({k_rows}, {n}) is not exactly symmetric")
 
-    route_ms = {route: time_ms(torch, lambda r=route: sy.syrk_lower(y, route=r), reps)
-                for route in sy.ROUTES}
+    ms = time_ms(torch, lambda: sy.syrk_lower(y), reps)
+    y_c = y.contiguous()
+    ms_contiguous = time_ms(torch, lambda: sy.syrk_lower(y_c), reps)
+    del y_c
     plain_ms = time_ms(torch, lambda: sy.syrk_lower_reference(y), max(1, reps // 4))
     library_ms = time_ms(torch, lambda: torch.matmul(y.t(), y), reps)
-    pairs = (n_pad // sy.TILE) * (n_pad // sy.TILE + 1) // 2
-    flops = 2.0 * k_rows * sy.TILE * sy.TILE * pairs
-    nbytes = k_rows * n * 4.0 + pairs * sy.TILE * sy.TILE * 4.0
+    flops, nbytes = syrk_lower_work(k_rows, n)
     t_ops, t_bytes = flops / H100_3XTF32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    ms = route_ms[sy.ROUTE]
     rec = {
-        "shape": [k_rows, n], "route": sy.ROUTE, "max_abs_err": errs[sy.ROUTE],
-        "max_rel_err": errs[sy.ROUTE] / scale, "max_rel_err_by_route":
-        {r: e / scale for r, e in errs.items()}, "symmetric": symmetric, "ms": ms,
-        "ms_by_route": route_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "shape": [k_rows, n], "row_stride": y.stride(0), "max_abs_err": err,
+        "max_rel_err": err / scale, "symmetric": symmetric, "ms": ms,
+        "ms_contiguous_rows": ms_contiguous, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "simt_bound_ms": max(flops / H100_FP32_FLOPS * 1e3, t_bytes), "tflops": flops / ms / 1e9,
     }
@@ -231,9 +236,14 @@ def main() -> int:
     _, n_acc = fs.schur_acc_dim(VIEWS)
     k2 = check_syrk_acc(torch, fs, sy, 3 * CHUNK, n_acc, args.reps, seed=0)
     check_syrk_acc(torch, fs, sy, 384, 9 * 512, args.reps, seed=1)
-    # K1 at the streamed chunk, Y (3 * 16384, 9 * 500), and at an unaligned shape
-    k1 = check_syrk_lower(torch, sy, 3 * STREAMED_CHUNK, 9 * STREAMED_VIEWS, args.reps, seed=2)
+    # K1 at the streamed chunk, Y (3 * 16384, 9 * 500) laid out as the
+    # streamed path lays it out, and at unaligned shapes (N not a multiple
+    # of 4: copied by the wrapper, then read in place at a wider stride)
+    k1 = check_syrk_lower(torch, sy, 3 * STREAMED_CHUNK, 9 * STREAMED_VIEWS, args.reps, seed=2,
+                          ld=sy.row_stride(9 * STREAMED_VIEWS))
     check_syrk_lower(torch, sy, 300, 1000, args.reps, seed=3)
+    check_syrk_lower(torch, sy, 300, 999, args.reps, seed=6)
+    check_syrk_lower(torch, sy, 300, 999, args.reps, seed=7, ld=sy.row_stride(999))
 
     # 4. the pipeline at full width
     config = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=args.ba_iters,
@@ -415,7 +425,6 @@ def main() -> int:
         "launches": k1_launches, "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"], "simt_bound_ms": k1["simt_bound_ms"],
-        "kernel_route": k1["route"], "ms_by_route": k1["ms_by_route"],
         "max_rel_err": k1["max_rel_err"], "tolerance_rel": 1e-5, "shape": k1["shape"],
     }]
     print(json.dumps({"kernels": kernels}))

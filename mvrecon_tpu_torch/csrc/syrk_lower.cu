@@ -2,48 +2,45 @@
 //
 //     S[i, j] = sum_k Y[k, i] * Y[k, j]   for tile_row(i) >= tile_col(j)
 //
-// with 512 x 512 tiles, S (n, n) float32 row-major, Y (k_rows, n) float32
-// row-major, n a multiple of 512 (the wrapper pads Y with zero columns).
-// Elements of the strictly upper 512-tiles are never written; the caller
-// mirrors the lower tiles. Rows past k_rows read as zero.
+// with 512 x 512 tiles, Y (k_rows, n) float32 with unit column stride and
+// row stride ld (ld >= n, ld a multiple of 4), and S (n_pad, n_pad)
+// float32 row-major, n_pad = n rounded up to 512. Rows past k_rows and
+// columns past n read as zero, so the caller pads nothing. Elements of
+// the strictly upper 512-tiles are never written; the caller mirrors the
+// lower tiles.
 //
 // Replaces mvrecon_tpu/ops/pallas_syrk.py::_syrk_kernel (launched by
 // syrk_lower there). The callers pin Precision.HIGHEST, so the products
-// must keep float32 accuracy. At the host-streamed chunk (Y 49152 x 4608,
-// 45 lower tile pairs) the work is 2 * 49152 * 512^2 * 45 = 1.16e12 FLOP
-// against ~0.93 GB of traffic: bound by operations, 7.0 ms at the
-// float32-accurate 3xTF32 tensor-core rate (495 / 3 = 165 TFLOP/s) and
-// 17.3 ms at the 67 TFLOP/s float32 rate outside the tensor cores (SXM
-// data sheet). Memory is no limit: each block reads its two 128-column
-// panels of Y once, so Y is read 8 times from L2 and the output once.
+// must keep float32 accuracy. At the host-streamed chunk, Y (49152, 4500),
+// the caller uses the element-wise lower triangle of S: 4500 * 4501 *
+// 49152 = 9.96e11 FLOP against ~0.93 GB of traffic. That is bound by
+// operations, 6.0 ms at the float32-accurate 3xTF32 tensor-core rate
+// (495 / 3 = 165 TFLOP/s) and 14.9 ms at the 67 TFLOP/s float32 rate
+// outside the tensor cores (SXM data sheet). Memory is no limit: each
+// block reads its two 128-column panels of Y once, so Y is read 8 times
+// from L2 and the output is written once. Rows that start on 128-byte
+// lines (ld a multiple of 32) load about 4 % faster than rows of 4500
+// floats (PERF.md, Findings), so the streamed path lays Y out so.
 //
-// Two routes to float32 accuracy, chosen by route (0 or 1):
+// Float32 accuracy from the tensor cores by 3xTF32. One block of eight
+// warps owns one 128 x 128 sub-tile of a lower tile pair; each warp owns
+// 64 x 32 of it as 4 x 4 mma.sync m16n8k8 TF32 tiles whose fragments are
+// read straight from shared memory into registers (rows padded to 136
+// floats, so the reads are free of bank conflicts). Each operand is split
+// into a TF32 "big" part and a TF32 "small" remainder, and small*big +
+// big*small + big*big are summed (small*small, ~2^-22 of the product, is
+// dropped). Y moves to shared memory with cp.async in double-buffered
+// stages of 16 rows, so the next stage loads while the tensor cores work
+// on this one. At the streamed chunk this ran about 14 % faster than
+// register-tiled FFMA, the other float32-accurate route (PERF.md,
+// Findings).
 //
-// 0. Register-tiled FFMA. A block of 256 threads owns one 128 x 128
-//    sub-tile; each thread holds an 8 x 8 patch of it in registers. The
-//    block walks Y in steps of 16 rows, double-buffered in shared memory,
-//    with the next step's panels prefetched into registers; a step is
-//    long enough to hide the next step's global loads behind its FMAs.
-// 1. 3xTF32 on the tensor cores. The same sub-tile per block, eight warps
-//    of 64 x 32 each, as 4 x 4 mma.sync m16n8k8 TF32 tiles whose
-//    fragments are read straight from shared memory into registers (rows
-//    padded to 136 floats, so the reads are free of bank conflicts). Each
-//    operand is split into a TF32 "big" part and a TF32 "small"
-//    remainder, and small*big + big*small + big*big are summed
-//    (small*small, ~2^-22 of the product, is dropped). Y moves to shared
-//    memory with cp.async in double-buffered stages of 16 rows, so the
-//    next stage loads while the tensor cores work on this one.
-//
-// Route 1 runs in the port (ops/syrk.py ROUTE): at the streamed chunk it
-// beat route 0 by about 13 % at the same accuracy. chip_smoke.py checks
-// and times both on every run (PERF.md, Findings).
-//
-// In both routes each 32 rows are summed from zero and then added into
-// the running sum with IEEE float32 adds: a single running sum over all
-// 49152 rows would drift by ~eps*sqrt(K) of a diagonal entry. Each output
-// element has exactly one owner, so there are no atomics. The block's
-// position comes from blockIdx through the closed-form packed triangular
-// index (no host map).
+// Each 32 rows are summed from zero and then added into the running sum
+// with IEEE float32 adds: a single running sum over all 49152 rows would
+// drift by ~eps*sqrt(K) of a diagonal entry. Each output element has
+// exactly one owner, so there are no atomics. The block's position comes
+// from blockIdx through the closed-form packed triangular index (no host
+// map).
 //
 // Plain C entry point for ctypes; returns cudaGetLastError() after the
 // launch on the caller's stream. Nothing is allocated.
@@ -72,126 +69,9 @@ __device__ __forceinline__ void block_origin(int& row0, int& col0) {
   col0 = tj * kTile + (sub % kSub) * kBM;
 }
 
-__device__ __forceinline__ float4 load4(const float* __restrict__ y, int k, int col,
-                                        int k_rows, int n) {
-  return k < k_rows ? *reinterpret_cast<const float4*>(y + (size_t)k * n + col)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// A panel is kRows rows of Y by the kBM columns from col0, moved as float4
-// vectors: neighbouring threads read neighbouring 16 bytes of a row.
-template <int kRows>
-__host__ __device__ constexpr int vecs_per_thread() { return kRows * kBM / 4 / kThreads; }
-
-template <int kRows>
-__device__ __forceinline__ void load_panel(float4 (&regs)[vecs_per_thread<kRows>()],
-                                           const float* __restrict__ y, int k0, int col0,
-                                           int k_rows, int n) {
-#pragma unroll
-  for (int r = 0; r < vecs_per_thread<kRows>(); ++r) {
-    const int v = threadIdx.x + r * kThreads;
-    regs[r] = load4(y, k0 + v / (kBM / 4), col0 + (v % (kBM / 4)) * 4, k_rows, n);
-  }
-}
-
-template <int kRows, int kLd>
-__device__ __forceinline__ void store_panel(float (*sh)[kLd],
-                                            const float4 (&regs)[vecs_per_thread<kRows>()]) {
-#pragma unroll
-  for (int r = 0; r < vecs_per_thread<kRows>(); ++r) {
-    const int v = threadIdx.x + r * kThreads;
-    *reinterpret_cast<float4*>(&sh[v / (kBM / 4)][(v % (kBM / 4)) * 4]) = regs[r];
-  }
-}
-
-// ---------------------------------------------------------------- route 0
-
-constexpr int kBK = 16;    // rows of Y per shared-memory step
-constexpr int kFold = 2;   // steps summed from zero before the running add
-
-__global__ void __launch_bounds__(kThreads)
-syrk_lower_ffma_kernel(float* __restrict__ s, const float* __restrict__ y, int k_rows, int n) {
-  int row0, col0;
-  block_origin(row0, col0);
-
-  __shared__ __align__(16) float sa[2][kBK][kBM];  // Y[k, row0 + m]
-  __shared__ __align__(16) float sb[2][kBK][kBM];  // Y[k, col0 + n]
-
-  const int tx = threadIdx.x % 16;  // owns columns tx*4.. and 64 + tx*4..
-  const int ty = threadIdx.x / 16;  // owns rows ty*4.. and 64 + ty*4..
-
-  float c[8][8];
-  float p[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
-
-  float4 ra[vecs_per_thread<kBK>()], rb[vecs_per_thread<kBK>()];
-  load_panel<kBK>(ra, y, 0, row0, k_rows, n);
-  load_panel<kBK>(rb, y, 0, col0, k_rows, n);
-  store_panel<kBK, kBM>(sa[0], ra);
-  store_panel<kBK, kBM>(sb[0], rb);
-  __syncthreads();
-
-  const int n_steps = (k_rows + kBK - 1) / kBK;
-  int buf = 0;
-  for (int step = 0; step < n_steps; ++step) {
-    const bool more = step + 1 < n_steps;
-    if (more) {
-      load_panel<kBK>(ra, y, (step + 1) * kBK, row0, k_rows, n);
-      load_panel<kBK>(rb, y, (step + 1) * kBK, col0, k_rows, n);
-    }
-    if (step % kFold == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) p[i][j] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sa[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&sa[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sb[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sb[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) p[i][j] = fmaf(a[i], b[j], p[i][j]);
-    }
-    if (step % kFold == kFold - 1 || !more) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) c[i][j] += p[i][j];
-    }
-    if (more) {
-      // the other buffer was last read in the previous step, which every
-      // thread finished before that step's barrier
-      store_panel<kBK, kBM>(sa[buf ^ 1], ra);
-      store_panel<kBK, kBM>(sb[buf ^ 1], rb);
-      __syncthreads();
-      buf ^= 1;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    float* dst = s + (size_t)r * n + col0;
-    *reinterpret_cast<float4*>(dst + tx * 4) = make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
-    *reinterpret_cast<float4*>(dst + 64 + tx * 4) =
-        make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
-  }
-}
-
-// ---------------------------------------------------------------- route 1
-
-constexpr int kBK3 = 16;        // rows of Y per cp.async stage
-constexpr int kFold3 = 2;       // stages summed from zero before the running add
-constexpr int kLds = kBM + 8;   // padded shared row: fragment loads are conflict-free
+constexpr int kBK = 16;        // rows of Y per cp.async stage
+constexpr int kFold = 2;       // stages summed from zero before the running add
+constexpr int kLds = kBM + 8;  // padded shared row: fragment loads are conflict-free
 
 __device__ __forceinline__ uint32_t to_tf32(float v) {
   uint32_t r;
@@ -214,39 +94,47 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// 16 bytes global -> shared without passing through registers; rows past
-// k_rows are zero-filled (source size 0)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+// 16 bytes global -> shared without passing through registers; only the
+// first `bytes` are read and the rest is zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
   const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(saddr), "l"(src), "r"(valid ? 16 : 0));
+               :: "r"(saddr), "l"(src), "r"(bytes));
 }
 
-// one stage: kBK3 rows of the two 128-column panels
+// bytes of the 4-float vector at column col that lie inside Y's n columns
+__device__ __forceinline__ int inside_bytes(int col, int n) {
+  return 4 * min(max(n - col, 0), 4);
+}
+
+// one stage: kBK rows of the two 128-column panels; what lies past k_rows
+// or n is zero-filled
 __device__ __forceinline__ void stage_panels(float (*sa)[kLds], float (*sb)[kLds],
                                              const float* __restrict__ y, int k0, int row0,
-                                             int col0, int k_rows, int n) {
+                                             int col0, int k_rows, int n, int ld) {
 #pragma unroll
-  for (int r = 0; r < kBK3 * kBM / 4 / kThreads; ++r) {
+  for (int r = 0; r < kBK * kBM / 4 / kThreads; ++r) {
     const int v = threadIdx.x + r * kThreads;
     const int k = k0 + v / (kBM / 4);
     const int c = (v % (kBM / 4)) * 4;
-    const bool valid = k < k_rows;
-    const float* src = valid ? y + (size_t)k * n : y;
-    cp_async16(&sa[v / (kBM / 4)][c], src + (valid ? row0 + c : 0), valid);
-    cp_async16(&sb[v / (kBM / 4)][c], src + (valid ? col0 + c : 0), valid);
+    const bool row_ok = k < k_rows;
+    const int a_bytes = row_ok ? inside_bytes(row0 + c, n) : 0;
+    const int b_bytes = row_ok ? inside_bytes(col0 + c, n) : 0;
+    const float* src = y + (size_t)(row_ok ? k : 0) * ld;
+    cp_async16(&sa[v / (kBM / 4)][c], a_bytes ? src + row0 + c : y, a_bytes);
+    cp_async16(&sb[v / (kBM / 4)][c], b_bytes ? src + col0 + c : y, b_bytes);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 syrk_lower_3xtf32_kernel(float* __restrict__ s, const float* __restrict__ y, int k_rows,
-                         int n) {
+                         int n, int ld, int n_pad) {
   int row0, col0;
   block_origin(row0, col0);
 
-  __shared__ __align__(16) float sa[2][kBK3][kLds];  // Y[k, row0 + m]
-  __shared__ __align__(16) float sb[2][kBK3][kLds];  // Y[k, col0 + n]
+  __shared__ __align__(16) float sa[2][kBK][kLds];  // Y[k, row0 + m]
+  __shared__ __align__(16) float sb[2][kBK][kLds];  // Y[k, col0 + n]
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -264,22 +152,22 @@ syrk_lower_3xtf32_kernel(float* __restrict__ s, const float* __restrict__ y, int
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
 
-  const int n_steps = (k_rows + kBK3 - 1) / kBK3;
-  if (n_steps > 0) stage_panels(sa[0], sb[0], y, 0, row0, col0, k_rows, n);
+  const int n_steps = (k_rows + kBK - 1) / kBK;
+  if (n_steps > 0) stage_panels(sa[0], sb[0], y, 0, row0, col0, k_rows, n, ld);
   for (int step = 0; step < n_steps; ++step) {
     const int buf = step & 1;
     const bool more = step + 1 < n_steps;
     if (more) {
       // the other buffer was last read in the previous step, which every
       // thread finished before that step's closing barrier
-      stage_panels(sa[buf ^ 1], sb[buf ^ 1], y, (step + 1) * kBK3, row0, col0, k_rows, n);
+      stage_panels(sa[buf ^ 1], sb[buf ^ 1], y, (step + 1) * kBK, row0, col0, k_rows, n, ld);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
 
-    if (step % kFold3 == 0) {
+    if (step % kFold == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -288,7 +176,7 @@ syrk_lower_3xtf32_kernel(float* __restrict__ s, const float* __restrict__ y, int
           for (int e = 0; e < 4; ++e) p[i][j][e] = 0.f;
     }
 #pragma unroll
-    for (int kk = 0; kk < kBK3; kk += 8) {
+    for (int kk = 0; kk < kBK; kk += 8) {
       // A(m, k) = Y[k, row0 + m]: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
       uint32_t a_big[4][4], a_small[4][4];
 #pragma unroll
@@ -322,7 +210,7 @@ syrk_lower_3xtf32_kernel(float* __restrict__ s, const float* __restrict__ y, int
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_tf32(p[i][j], a_big[i], b_big[j]);
     }
-    if (step % kFold3 == kFold3 - 1 || !more) {
+    if (step % kFold == kFold - 1 || !more) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -338,27 +226,23 @@ syrk_lower_3xtf32_kernel(float* __restrict__ s, const float* __restrict__ y, int
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      float* dst = s + (size_t)(row0 + wr + 16 * i + g) * n + col0 + wc + 8 * j + 2 * t;
+      float* dst = s + (size_t)(row0 + wr + 16 * i + g) * n_pad + col0 + wc + 8 * j + 2 * t;
       *reinterpret_cast<float2*>(dst) = make_float2(c[i][j][0], c[i][j][1]);
-      *reinterpret_cast<float2*>(dst + 8 * (size_t)n) = make_float2(c[i][j][2], c[i][j][3]);
+      *reinterpret_cast<float2*>(dst + 8 * (size_t)n_pad) = make_float2(c[i][j][2], c[i][j][3]);
     }
 }
 
 }  // namespace
 
-extern "C" int syrk_lower_f32(float* s, const float* y, int k_rows, int n, int route,
+extern "C" int syrk_lower_f32(float* s, const float* y, int k_rows, int n, int ld,
                               void* stream) {
-  if (n % kTile != 0 || k_rows < 0 || (route != 0 && route != 1)) {
+  if (n < 0 || k_rows < 0 || ld < n || ld % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nt = n / kTile;
+  const int nt = (n + kTile - 1) / kTile;
   const int blocks = nt * (nt + 1) / 2 * kSubs;
   if (blocks == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 0) {
-    syrk_lower_ffma_kernel<<<blocks, kThreads, 0, st>>>(s, y, k_rows, n);
-  } else {
-    syrk_lower_3xtf32_kernel<<<blocks, kThreads, 0, st>>>(s, y, k_rows, n);
-  }
+  syrk_lower_3xtf32_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, y, k_rows, n, ld, nt * kTile);
   return static_cast<int>(cudaGetLastError());
 }

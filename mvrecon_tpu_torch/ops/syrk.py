@@ -7,11 +7,9 @@ the 512-tiles on and below the diagonal and ``mirror_lower`` completes
 the square.
 
 On a CUDA tensor ``syrk_lower`` launches the kernel in
-``csrc/syrk_lower.cu`` or raises; on a CPU tensor it runs the plain
-version ``syrk_lower_reference``. The kernel has two routes to float32
-accuracy, register-tiled FFMA and 3xTF32 on the tensor cores; ``ROUTE``
-names the one the port uses, chosen by the timings of ``chip_smoke.py``
-(PERF.md, Findings).
+``csrc/syrk_lower.cu`` (3xTF32 on the tensor cores, float32-accurate) or
+raises; on a CPU tensor it runs the plain version
+``syrk_lower_reference``.
 """
 
 from __future__ import annotations
@@ -21,8 +19,7 @@ import ctypes
 import torch
 
 TILE = 512
-ROUTES = {"ffma": 0, "3xtf32": 1}
-ROUTE = "3xtf32"
+ROW_ALIGN = 32  # floats: rows of Y that start on 128-byte lines load fastest
 
 # launches of each kernel of this module since the last reset
 launch_counts = {"syrk_lower": 0}
@@ -36,6 +33,13 @@ def reset_launch_counts() -> None:
 def padded_dim(n: int) -> int:
     """N rounded up to the 512-tile."""
     return -(-n // TILE) * TILE
+
+
+def row_stride(n: int) -> int:
+    """Row stride, in floats, at which K1 reads an (K, n) Y fastest: n
+    rounded up to 128 bytes (PERF.md, Findings). A caller that builds Y
+    itself lays it out so and hands ``syrk_lower`` the (K, n) view."""
+    return -(-n // ROW_ALIGN) * ROW_ALIGN
 
 
 def lower_tile_mask(n: int, device=None) -> torch.Tensor:
@@ -69,12 +73,14 @@ def _syrk_lower_lib():
     return fn
 
 
-def syrk_lower(y: torch.Tensor, route: str = ROUTE) -> torch.Tensor:
+def syrk_lower(y: torch.Tensor) -> torch.Tensor:
     """Y (K, N) -> a fresh (n_pad, n_pad) tensor whose lower 512-tiles hold
-    YᵀY; n_pad is N rounded up to 512 (zero columns are padded in). On the
-    card the upper tiles are never written and hold whatever the
-    allocation held; Y must be float32, and the kernel runs on the current
-    stream by ``route``. On the CPU the plain version runs."""
+    YᵀY; n_pad is N rounded up to 512, and the columns past N count as
+    zero. On the card the upper tiles are never written and hold whatever
+    the allocation held; Y must be float32 with unit column stride, and
+    the kernel reads it in place at its row stride, which must be a
+    multiple of 4 floats (a contiguous Y whose N is not is copied first);
+    it runs on the current stream. On the CPU the plain version runs."""
     if y.dim() != 2:
         raise ValueError(f"need Y (K, N), got shape {tuple(y.shape)}")
     if y.device.type == "cpu":
@@ -83,15 +89,18 @@ def syrk_lower(y: torch.Tensor, route: str = ROUTE) -> torch.Tensor:
         raise ValueError(f"Y on {y.device}")
     if y.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32 Y, got {y.dtype}")
-    if not y.is_contiguous() or y.data_ptr() % 16:
-        raise ValueError("Y must be contiguous and 16-byte aligned")
     k_rows, n = y.shape
+    if n % 4 and y.is_contiguous():
+        # the kernel moves Y's rows in 16-byte vectors
+        y = torch.nn.functional.pad(y, (0, -n % 4))[:, :n]
+    ld = y.stride(0)
+    if y.stride(1) != 1 or ld < n or ld % 4 or y.data_ptr() % 16:
+        raise ValueError(f"Y needs unit column stride, a row stride >= N that is a multiple "
+                         f"of 4 and 16-byte alignment; got strides {y.stride()}")
     n_pad = padded_dim(n)
-    if n_pad != n:
-        y = torch.nn.functional.pad(y, (0, n_pad - n))
     out = torch.empty((n_pad, n_pad), dtype=torch.float32, device=y.device)
     fn = _syrk_lower_lib()
-    err = fn(out.data_ptr(), y.data_ptr(), k_rows, n_pad, ROUTES[route],
+    err = fn(out.data_ptr(), y.data_ptr(), k_rows, n, ld,
              torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"syrk_lower kernel launch failed: cudaError {err}")

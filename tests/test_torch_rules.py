@@ -22,7 +22,6 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "scripts" / "profile_torch_ba.py",
     REPO / "scripts" / "profile_torch_streamed.py",
-    REPO / "scripts" / "tune_syrk_lower_steps.py",
     REPO / "scripts" / "gpu_cpu_trajectory.py",
 ]
 

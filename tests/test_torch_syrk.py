@@ -3,6 +3,9 @@ K1) with the JAX package's (``ops/pallas_syrk.py``, its Pallas kernel run
 in interpret mode), on the same numpy inputs on the CPU, where the port's
 ``syrk_lower`` runs its plain version."""
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -90,3 +93,35 @@ def test_mirror_lower_is_symmetric_for_unsymmetric_diagonal_tiles():
     lo = np.tril(a[:n, :n])
     np.testing.assert_array_equal(got, lo + np.tril(lo, -1).T)
     np.testing.assert_array_equal(got, got.T)
+
+
+def test_chip_smoke_bound_counts_the_used_triangle():
+    """The bound of K1 that the chip check reports counts the work of the
+    element-wise lower triangle over the real columns, the part of YᵀY that
+    ``mirror_lower`` reads, not the padded 512-tiles the kernel covers."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    k_rows, n = 7, 700
+    entries = np.tril(np.ones((n, n))).sum()
+    flops, nbytes = chip_smoke.syrk_lower_work(k_rows, n)
+    assert flops == 2 * k_rows * entries
+    assert nbytes == 4 * (k_rows * n + entries)
+    flops, _ = chip_smoke.syrk_lower_work(3 * 16384, 9 * 500)
+    assert flops == 4500 * 4501 * 49152
+    assert flops < 2 * 49152 * 512**2 * 45  # the padded tile pairs' work
+
+
+def test_syrk_lower_of_a_row_strided_view_reads_only_its_columns():
+    """The streamed path hands K1 a (K, N) view of rows ``row_stride(N)``
+    floats apart (128-byte multiples); the columns between N and the stride
+    hold whatever the allocation held and must not reach the result."""
+    n = 999
+    assert tsy.row_stride(n) == 1024 and tsy.row_stride(4500) == 4512
+    assert tsy.row_stride(4512) == 4512
+    rows = np.random.default_rng(6).normal(size=(70, tsy.row_stride(n))).astype(np.float32)
+    view = torch.from_numpy(rows)[:, :n]
+    got = tsy.syrk(view).numpy()
+    want = tsy.syrk(torch.from_numpy(np.ascontiguousarray(rows[:, :n]))).numpy()
+    np.testing.assert_array_equal(got, want)
