@@ -10,8 +10,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
 2. build: every hand-written kernel, from ``mvrecon_tpu_torch/csrc/``,
    one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes, with its time, the plain version's, one
-   PyTorch call's and the bound of the work;
+   the main paths' shapes and at k_rows that are no multiple of a kernel's
+   stage, with its time, the plain version's, one PyTorch call's and the
+   bound of the work;
 4. pipeline: ``euclidean_reconstruction_large`` at 100k points x 1000
    views, float32, chunk 768, counting kernel launches on that run;
 4b. streamed: ``bundle_adjust_streamed`` at 1M points x 500 views from
@@ -59,6 +60,12 @@ STREAMED_CHUNK = 16384  # the streamed core's default chunk: K1's Y is (49152, 4
 # and by 1.6e-3 from float32 to float64.
 EARLY_ITER_RTOL = 2e-5
 FINAL_E_RTOL = 5e-3
+K2_DESIGN = ("bf16 wgmma m64n128k16, both operands MN-major from a 4-stage TMA ring of "
+             "64-row stages; persistent blocks; the two consumer warpgroups take turns; "
+             "old acc prefetched by TMA")
+K1_DESIGN = ("3xTF32 on wgmma m64n128k8, Y K-major from a 5-stage TMA ring of 32-row stages; "
+             "A split in registers, B's small parts in shared planes one stage ahead; "
+             "persistent blocks")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -125,7 +132,7 @@ def check_syrk_acc(torch, fs, sy, k_rows: int, n: int, reps: int, seed: int) -> 
         "upper_untouched": upper_same, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "tflops": flops / ms / 1e9,
+        "tflops": flops / ms / 1e9, "design": K2_DESIGN,
     }
     print("syrk_acc check " + json.dumps(rec), flush=True)
     return rec
@@ -141,16 +148,21 @@ def syrk_lower_work(k_rows: int, n: int) -> tuple[float, float]:
 
 
 def check_syrk_lower(torch, sy, k_rows: int, n: int, reps: int, seed: int,
-                     ld: int | None = None) -> dict:
+                     k_major: bool = False) -> dict:
     """K1 against its plain version: lower tiles within 1e-5 of the largest
     entry, the mirrored product exactly symmetric; then the timings of the
     kernel, the plain version, one float32 ``torch.matmul(y.t(), y)`` (TF32
-    off, the full square) and the bound at this shape. With ``ld``, Y is
-    the (k_rows, n) view of rows ld floats apart whose other columns hold
-    noise the kernel must not read. The kernel is also timed on a
-    contiguous copy of Y."""
+    off, the full square) and the bound at this shape. With ``k_major``, Y
+    is the K-major (k_rows, n) view of an (n, row_stride(k_rows)) buffer,
+    as the streamed path lays it out, whose other columns hold noise the
+    kernel must not read; else Y is contiguous row-major, which the wrapper
+    copies into that layout first. The kernel is also timed on a
+    contiguous row-major copy of Y (``ms_row_major``, the copy included)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    y = torch.randn(k_rows, ld or n, generator=gen, device="cuda")[:, :n]
+    if k_major:
+        y = torch.randn(n, sy.row_stride(k_rows), generator=gen, device="cuda")[:, :k_rows].T
+    else:
+        y = torch.randn(k_rows, n, generator=gen, device="cuda")
     want = sy.syrk_lower_reference(y)
     lower = sy.lower_tile_mask(want.shape[0], "cuda")
     scale = float(want.abs().masked_fill(~lower, 0.0).max())
@@ -164,19 +176,21 @@ def check_syrk_lower(torch, sy, k_rows: int, n: int, reps: int, seed: int,
     check(symmetric, f"syrk ({k_rows}, {n}) is not exactly symmetric")
 
     ms = time_ms(torch, lambda: sy.syrk_lower(y), reps)
-    y_c = y.contiguous()
-    ms_contiguous = time_ms(torch, lambda: sy.syrk_lower(y_c), reps)
-    del y_c
+    y_r = y.contiguous()
+    ms_row_major = time_ms(torch, lambda: sy.syrk_lower(y_r), reps)
+    del y_r
     plain_ms = time_ms(torch, lambda: sy.syrk_lower_reference(y), max(1, reps // 4))
     library_ms = time_ms(torch, lambda: torch.matmul(y.t(), y), reps)
     flops, nbytes = syrk_lower_work(k_rows, n)
     t_ops, t_bytes = flops / H100_3XTF32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     rec = {
-        "shape": [k_rows, n], "row_stride": y.stride(0), "max_abs_err": err,
-        "max_rel_err": err / scale, "symmetric": symmetric, "ms": ms,
-        "ms_contiguous_rows": ms_contiguous, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "shape": [k_rows, n], "layout": "k_major" if k_major else "row_major",
+        "strides": list(y.stride()), "max_abs_err": err, "max_rel_err": err / scale,
+        "symmetric": symmetric, "ms": ms, "ms_row_major": ms_row_major, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "simt_bound_ms": max(flops / H100_FP32_FLOPS * 1e3, t_bytes), "tflops": flops / ms / 1e9,
+        "design": K1_DESIGN,
     }
     print("syrk_lower check " + json.dumps(rec), flush=True)
     return rec
@@ -233,17 +247,21 @@ def main() -> int:
 
     # 3. kernels against their plain versions, at the north-star chunk
     # (Y (3 * 768, 9 * 1024)) and at the small device-test shape
+    # K2 also at k_rows not a multiple of its 64-row stage
     _, n_acc = fs.schur_acc_dim(VIEWS)
     k2 = check_syrk_acc(torch, fs, sy, 3 * CHUNK, n_acc, args.reps, seed=0)
     check_syrk_acc(torch, fs, sy, 384, 9 * 512, args.reps, seed=1)
-    # K1 at the streamed chunk, Y (3 * 16384, 9 * 500) laid out as the
-    # streamed path lays it out, and at unaligned shapes (N not a multiple
-    # of 4: copied by the wrapper, then read in place at a wider stride)
+    check_syrk_acc(torch, fs, sy, 300, 9 * 512, args.reps, seed=8)
+    # K1 at the streamed chunk, Y (3 * 16384, 9 * 500) laid out K-major as
+    # the streamed path lays it out, at unaligned shapes given row-major
+    # (copied by the wrapper) and K-major, and at k_rows not a multiple of
+    # its 32-row stage
     k1 = check_syrk_lower(torch, sy, 3 * STREAMED_CHUNK, 9 * STREAMED_VIEWS, args.reps, seed=2,
-                          ld=sy.row_stride(9 * STREAMED_VIEWS))
+                          k_major=True)
     check_syrk_lower(torch, sy, 300, 1000, args.reps, seed=3)
     check_syrk_lower(torch, sy, 300, 999, args.reps, seed=6)
-    check_syrk_lower(torch, sy, 300, 999, args.reps, seed=7, ld=sy.row_stride(999))
+    check_syrk_lower(torch, sy, 300, 999, args.reps, seed=7, k_major=True)
+    check_syrk_lower(torch, sy, 333, 999, args.reps, seed=9, k_major=True)
 
     # 4. the pipeline at full width
     config = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=args.ba_iters,
@@ -418,7 +436,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
-        "tolerance_rel": 1e-5, "shape": k2["shape"],
+        "tolerance_rel": 1e-5, "shape": k2["shape"], "tflops": k2["tflops"],
+        "design": K2_DESIGN,
     }, {
         "name": "syrk_lower", "route": "cuda", "source": "mvrecon_tpu_torch/csrc/syrk_lower.cu",
         "replaces": "mvrecon_tpu/ops/pallas_syrk.py:42",
@@ -426,6 +445,7 @@ def main() -> int:
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"], "simt_bound_ms": k1["simt_bound_ms"],
         "max_rel_err": k1["max_rel_err"], "tolerance_rel": 1e-5, "shape": k1["shape"],
+        "tflops": k1["tflops"], "design": K1_DESIGN,
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -61,13 +61,17 @@ def _accumulate_chunk(accs, cam: BAState, X_c, x_c, vis_c, free, c: float, f0: f
     eye3 = torch.eye(3, dtype=matE.dtype, device=matE.device)
     linv = inv_lower3(chol3x3(matE + c * matE * eye3[None]))
     npts_c, _, nf9 = matF.shape
-    # Y (C, 3, 9F) in rows that start where K1 reads them fastest
-    y_rows = torch.empty((npts_c * 3, row_stride(nf9)), dtype=matF.dtype, device=matF.device)
-    y = torch.bmm(linv, matF, out=y_rows[:, :nf9].view(npts_c, 3, nf9))
+    # Yᵀ (9F, 3C) = (L⁻¹F)ᵀ, written by the product itself in rows that
+    # start on 128-byte lines: its transpose Y (3C, 9F) is K-major, as K1
+    # reads it
+    y_t = torch.empty((nf9, row_stride(npts_c * 3)), dtype=matF.dtype,
+                      device=matF.device)[:, :npts_c * 3]
+    torch.bmm(matF.transpose(1, 2), linv.transpose(1, 2),
+              out=y_t.view(nf9, npts_c, 3).transpose(0, 1))
     del matF
     yd = torch.einsum("pxy,py->px", linv, d_P)
-    schur_acc = schur_acc + syrk(y_rows[:, :nf9])
-    b_acc = b_acc + torch.einsum("pxm,px->m", y, yd)
+    schur_acc = schur_acc + syrk(y_t.T)
+    b_acc = b_acc + y_t @ yd.reshape(-1)
     return (schur_acc, b_acc, g_acc + matG, df_acc + d_F, e_acc + e_chunk)
 
 

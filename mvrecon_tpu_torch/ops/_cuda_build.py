@@ -3,9 +3,11 @@
 Each source under ``mvrecon_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, in
 ``build/kernels/`` at the repository root, and loaded with ``ctypes``. The
-library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a current one is reused. Nothing is built
-when this module is imported.
+library's file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header is rebuilt
+and a current one is reused. The kernels take ``cuTensorMapEncodeTiled``
+through ``cudaGetDriverEntryPointByVersion``, so nothing links
+``-lcuda``. Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> float:

@@ -7,9 +7,11 @@ the 512-tiles on and below the diagonal and ``mirror_lower`` completes
 the square.
 
 On a CUDA tensor ``syrk_lower`` launches the kernel in
-``csrc/syrk_lower.cu`` (3xTF32 on the tensor cores, float32-accurate) or
-raises; on a CPU tensor it runs the plain version
-``syrk_lower_reference``.
+``csrc/syrk_lower.cu`` (3xTF32 on ``wgmma``, float32-accurate) or raises;
+on a CPU tensor it runs the plain version ``syrk_lower_reference``. The
+kernel reads Y K-major: each column of Y contiguous, the layout of a
+transposed row-major (N, ld) buffer, which is how the streamed path
+writes it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import ctypes
 import torch
 
 TILE = 512
-ROW_ALIGN = 32  # floats: rows of Y that start on 128-byte lines load fastest
+ROW_ALIGN = 32  # floats: lines that start on 128-byte boundaries load fastest
 
 # launches of each kernel of this module since the last reset
 launch_counts = {"syrk_lower": 0}
@@ -36,10 +38,30 @@ def padded_dim(n: int) -> int:
 
 
 def row_stride(n: int) -> int:
-    """Row stride, in floats, at which K1 reads an (K, n) Y fastest: n
-    rounded up to 128 bytes (PERF.md, Findings). A caller that builds Y
-    itself lays it out so and hands ``syrk_lower`` the (K, n) view."""
+    """Stride, in floats, at which to lay out runs of n floats so that each
+    starts on a 128-byte line: n rounded up to 32. The streamed path
+    writes Yᵀ (N, K) in rows of ``row_stride(K)`` floats and hands
+    ``syrk_lower`` its transpose, the K-major (K, N) view."""
     return -(-n // ROW_ALIGN) * ROW_ALIGN
+
+
+def k_major(y: torch.Tensor) -> bool:
+    """True if Y (K, N) lies as K1 reads it in place: each column
+    contiguous, columns a multiple of 4 floats (16 bytes) apart and at
+    least K apart. The kernel's TMA also needs a 16-byte-aligned start."""
+    k_rows, n = y.shape
+    ld = y.stride(1) if n > 1 else row_stride(k_rows)
+    return (y.stride(0) == 1 or k_rows <= 1) and ld >= k_rows and ld % 4 == 0
+
+
+def _check_layout(y: torch.Tensor) -> None:
+    """Y must be a (K, N) matrix with one unit stride: K-major, or
+    row-major at any row stride (which the card copies once)."""
+    if y.dim() != 2:
+        raise ValueError(f"need Y (K, N), got shape {tuple(y.shape)}")
+    k_rows, n = y.shape
+    if not (y.stride(0) == 1 or k_rows <= 1 or y.stride(1) == 1 or n <= 1):
+        raise ValueError(f"Y needs a unit stride along K or along N; got strides {y.stride()}")
 
 
 def lower_tile_mask(n: int, device=None) -> torch.Tensor:
@@ -76,13 +98,15 @@ def _syrk_lower_lib():
 def syrk_lower(y: torch.Tensor) -> torch.Tensor:
     """Y (K, N) -> a fresh (n_pad, n_pad) tensor whose lower 512-tiles hold
     YᵀY; n_pad is N rounded up to 512, and the columns past N count as
-    zero. On the card the upper tiles are never written and hold whatever
-    the allocation held; Y must be float32 with unit column stride, and
-    the kernel reads it in place at its row stride, which must be a
-    multiple of 4 floats (a contiguous Y whose N is not is copied first);
-    it runs on the current stream. On the CPU the plain version runs."""
-    if y.dim() != 2:
-        raise ValueError(f"need Y (K, N), got shape {tuple(y.shape)}")
+    zero. Y needs a unit stride along K or along N (else ValueError).
+
+    On the card the upper tiles are never written and hold whatever the
+    allocation held; Y must be float32. The kernel reads a K-major Y
+    (``k_major``) in place, at its 16-byte-aligned start; any other Y is
+    first copied into a K-major buffer with columns ``row_stride(K)``
+    floats apart. It runs on the current stream. On the CPU the plain
+    version runs."""
+    _check_layout(y)
     if y.device.type == "cpu":
         return syrk_lower_reference(y)
     if y.device.type != "cuda":
@@ -90,14 +114,14 @@ def syrk_lower(y: torch.Tensor) -> torch.Tensor:
     if y.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32 Y, got {y.dtype}")
     k_rows, n = y.shape
-    if n % 4 and y.is_contiguous():
-        # the kernel moves Y's rows in 16-byte vectors
-        y = torch.nn.functional.pad(y, (0, -n % 4))[:, :n]
-    ld = y.stride(0)
-    if y.stride(1) != 1 or ld < n or ld % 4 or y.data_ptr() % 16:
-        raise ValueError(f"Y needs unit column stride, a row stride >= N that is a multiple "
-                         f"of 4 and 16-byte alignment; got strides {y.stride()}")
     n_pad = padded_dim(n)
+    if k_rows == 0:
+        return torch.zeros((n_pad, n_pad), dtype=torch.float32, device=y.device)
+    if not k_major(y) or y.data_ptr() % 16:
+        cols = torch.empty((n, row_stride(k_rows)), dtype=y.dtype, device=y.device)
+        cols[:, :k_rows].copy_(y.T)
+        y = cols[:, :k_rows].T
+    ld = y.stride(1) if n > 1 else row_stride(k_rows)
     out = torch.empty((n_pad, n_pad), dtype=torch.float32, device=y.device)
     fn = _syrk_lower_lib()
     err = fn(out.data_ptr(), y.data_ptr(), k_rows, n, ld,
@@ -112,8 +136,8 @@ def mirror_lower(lower: torch.Tensor, n: int) -> torch.Tensor:
     """Complete a ``syrk_lower`` result, cut to (n, n), from its element-wise
     lower triangle: the upper tiles are never read, and the result is
     exactly symmetric even where the kernel's rounding of a diagonal tile
-    is not (the 3xTF32 route sums an entry's two cross products in the
-    other order than its mirror's). For symmetric diagonal tiles this is
+    is not (3xTF32 sums an entry's two cross products in the other order
+    than its mirror's). For symmetric diagonal tiles this is
     the JAX package's tile mirror, bit for bit."""
     lo = lower[:n, :n]
     return torch.tril(lo) + torch.tril(lo, -1).T

@@ -66,6 +66,25 @@ def test_syrk_acc_cpu_keeps_upper_tiles_and_counts_no_launch():
         tps.syrk_acc(torch.zeros((n + 8, n + 8)), torch.zeros((4, n + 8)))
 
 
+
+@pytest.mark.parametrize("k_rows", [1, 63, 300])
+def test_syrk_acc_rows_off_the_stage_match_jax(interpret, k_rows):
+    """K2 streams Y in 64-row stages and reads rows past k_rows as zero;
+    the wrapper's contract has no row multiple. At k_rows that are none
+    the port's CPU path and the JAX kernel (interpreted) agree on the lower
+    tiles, and the port leaves the upper ones untouched."""
+    n = 2 * tps.TILE
+    rng = np.random.default_rng(k_rows)
+    acc0 = rng.standard_normal((n, n)).astype(np.float32)
+    y = _bf16_y(k_rows, n, seed=k_rows + 1)
+    want = np.asarray(jps.syrk_acc(jnp.asarray(acc0), jnp.asarray(y, jnp.bfloat16)))
+    got = tps.syrk_acc(torch.from_numpy(acc0.copy()), torch.from_numpy(y).to(torch.bfloat16))
+    lower = lower_tile_mask(n).numpy()
+    scale = np.abs(want[lower]).max()
+    np.testing.assert_allclose(got.numpy()[lower], want[lower], rtol=0, atol=2e-6 * scale)
+    np.testing.assert_array_equal(got.numpy()[~lower], acc0[~lower])
+
+
 def _chunk_problem(n_pts=64, nf=6, visibility=False):
     """One chunk of a synthetic scene in the normalized gauge, as numpy
     float32: camera fields, points, observations, visibility."""

@@ -114,9 +114,10 @@ def test_chip_smoke_bound_counts_the_used_triangle():
 
 
 def test_syrk_lower_of_a_row_strided_view_reads_only_its_columns():
-    """The streamed path hands K1 a (K, N) view of rows ``row_stride(N)``
-    floats apart (128-byte multiples); the columns between N and the stride
-    hold whatever the allocation held and must not reach the result."""
+    """A row-major (K, N) view of rows ``row_stride(N)`` floats apart
+    (128-byte multiples), which the card copies into K1's K-major layout:
+    the columns between N and the stride hold whatever the allocation held
+    and must not reach the result."""
     n = 999
     assert tsy.row_stride(n) == 1024 and tsy.row_stride(4500) == 4512
     assert tsy.row_stride(4512) == 4512
@@ -125,3 +126,84 @@ def test_syrk_lower_of_a_row_strided_view_reads_only_its_columns():
     got = tsy.syrk(view).numpy()
     want = tsy.syrk(torch.from_numpy(np.ascontiguousarray(rows[:, :n]))).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _k_major(k_rows, n, seed):
+    """Y (k_rows, n) as the streamed path lays it out: the transpose of an
+    (n, row_stride(k_rows)) buffer, whose other columns hold noise."""
+    buf = np.random.default_rng(seed).normal(size=(n, tsy.row_stride(k_rows)))
+    return torch.from_numpy(buf.astype(np.float32))[:, :k_rows].T
+
+
+@pytest.mark.parametrize("shape", [(300, 999), (333, 640), (1, 5), (7, 1)])
+def test_syrk_lower_of_a_k_major_view_matches_contiguous(shape):
+    """K1 reads Y K-major; on the CPU such a view gives the same bits as a
+    contiguous copy, and only its own rows reach the result."""
+    y = _k_major(*shape, seed=sum(shape))
+    assert y.stride(0) == 1 or shape[0] == 1
+    assert tsy.k_major(y)
+    got = tsy.syrk(y).numpy()
+    want = tsy.syrk(y.contiguous()).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_k_major_layout_rule():
+    """In place on the card: unit stride along K, columns at least K and a
+    multiple of 4 floats apart; anything else with a unit stride is copied
+    into that layout by the wrapper."""
+    assert tsy.k_major(_k_major(300, 999, 0))
+    assert tsy.k_major(torch.zeros(999, 300).T)            # columns 300 apart
+    assert not tsy.k_major(torch.zeros(999, 301).T)        # 301 is no multiple of 4
+    assert not tsy.k_major(torch.zeros(300, 999))          # row-major
+    assert tsy.k_major(torch.zeros(999, 304)[:, :300].T[:200])  # fewer rows, same columns
+    assert not tsy.k_major(torch.zeros(64).as_strided((8, 4), (1, 4)))  # columns overlap
+
+
+@pytest.mark.parametrize("view", ["every other row and column", "column slice of a transpose"])
+def test_syrk_lower_rejects_views_without_a_unit_stride(view):
+    base = torch.zeros(64, 64)
+    y = base[::2, ::2] if view.startswith("every") else base.T[::2, ::3]
+    assert 1 not in y.stride()
+    tsy.reset_launch_counts()
+    with pytest.raises(ValueError, match="unit stride"):
+        tsy.syrk_lower(y)
+    with pytest.raises(ValueError, match="unit stride"):
+        tsy.syrk(y)
+    assert tsy.launch_counts["syrk_lower"] == 0
+
+
+def _trunc_tf32(a):
+    """What the tensor cores read of a float32: its top 19 bits."""
+    return (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _rna_tf32(a):
+    """cvt.rna.tf32.f32: to the nearest TF32, ties away from zero."""
+    u = a.view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(300, 1000), (384, 999)])
+def test_3xtf32_split_of_k1_keeps_float32_accuracy(shape):
+    """A plain model of K1's arithmetic: big = the top 19 bits of each
+    float (what wgmma reads), small = the TF32-rounded remainder (what the
+    consumers write), and the products small*big, big*small, big*big
+    (exact in float32) summed in float64. Against the float64 product it
+    stays under 1e-6 of the largest entry of the lower tiles."""
+    rng = np.random.default_rng(shape[1])
+    y = rng.normal(size=shape).astype(np.float32)
+    big = _trunc_tf32(y)
+    small = _rna_tf32(y - big)
+    assert np.all(_trunc_tf32(small) == small)
+    assert np.all(np.abs(y - big - small) <= np.abs(y) * 2.0**-20)
+    b64, s64 = big.astype(np.float64), small.astype(np.float64)
+    model = s64.T @ b64 + b64.T @ s64 + b64.T @ b64
+    want = tsy.syrk_lower_reference(torch.from_numpy(y)).numpy()
+    n = shape[1]
+    lower = tsy.lower_tile_mask(want.shape[0]).numpy()[:n, :n]
+    scale = np.abs(want[:n, :n][lower]).max()
+    err = np.abs(model - want[:n, :n])[lower].max()
+    assert err < 1e-6 * scale
+    # one TF32 product alone is ~1e3 times further off
+    one = (b64.T @ b64 - want[:n, :n])[lower]
+    assert np.abs(one).max() > 100 * err
