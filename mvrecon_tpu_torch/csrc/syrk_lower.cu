@@ -35,8 +35,7 @@
 // m64n128k8 for small*big, big*small and big*big (small*small, ~2^-22 of
 // the product, is dropped), and while those run they load and split the
 // next stage. A in registers takes two thirds of the operand reads off
-// shared memory; that ran 3 % faster than both operands from shared
-// memory (PERF.md, Findings).
+// shared memory, and each thread splits its A values once per stage.
 //
 // Each 32-row stage is summed on the tensor cores from zero and then
 // added into a separate float32 running sum in registers: a single

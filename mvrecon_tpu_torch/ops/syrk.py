@@ -45,23 +45,19 @@ def row_stride(n: int) -> int:
     return -(-n // ROW_ALIGN) * ROW_ALIGN
 
 
+def _column_stride(y: torch.Tensor) -> int:
+    """Floats between Y's columns as K1 is told them; a single column has
+    none of its own, so it is given the stride the wrapper would lay out."""
+    k_rows, n = y.shape
+    return y.stride(1) if n > 1 else row_stride(k_rows)
+
+
 def k_major(y: torch.Tensor) -> bool:
     """True if Y (K, N) lies as K1 reads it in place: each column
     contiguous, columns a multiple of 4 floats (16 bytes) apart and at
     least K apart. The kernel's TMA also needs a 16-byte-aligned start."""
-    k_rows, n = y.shape
-    ld = y.stride(1) if n > 1 else row_stride(k_rows)
-    return (y.stride(0) == 1 or k_rows <= 1) and ld >= k_rows and ld % 4 == 0
-
-
-def _check_layout(y: torch.Tensor) -> None:
-    """Y must be a (K, N) matrix with one unit stride: K-major, or
-    row-major at any row stride (which the card copies once)."""
-    if y.dim() != 2:
-        raise ValueError(f"need Y (K, N), got shape {tuple(y.shape)}")
-    k_rows, n = y.shape
-    if not (y.stride(0) == 1 or k_rows <= 1 or y.stride(1) == 1 or n <= 1):
-        raise ValueError(f"Y needs a unit stride along K or along N; got strides {y.stride()}")
+    ld = _column_stride(y)
+    return (y.stride(0) == 1 or y.shape[0] <= 1) and ld >= y.shape[0] and ld % 4 == 0
 
 
 def lower_tile_mask(n: int, device=None) -> torch.Tensor:
@@ -106,14 +102,17 @@ def syrk_lower(y: torch.Tensor) -> torch.Tensor:
     first copied into a K-major buffer with columns ``row_stride(K)``
     floats apart. It runs on the current stream. On the CPU the plain
     version runs."""
-    _check_layout(y)
+    if y.dim() != 2:
+        raise ValueError(f"need Y (K, N), got shape {tuple(y.shape)}")
+    k_rows, n = y.shape
+    if not (y.stride(0) == 1 or k_rows <= 1 or y.stride(1) == 1 or n <= 1):
+        raise ValueError(f"Y needs a unit stride along K or along N; got strides {y.stride()}")
     if y.device.type == "cpu":
         return syrk_lower_reference(y)
     if y.device.type != "cuda":
         raise ValueError(f"Y on {y.device}")
     if y.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32 Y, got {y.dtype}")
-    k_rows, n = y.shape
     n_pad = padded_dim(n)
     if k_rows == 0:
         return torch.zeros((n_pad, n_pad), dtype=torch.float32, device=y.device)
@@ -121,7 +120,7 @@ def syrk_lower(y: torch.Tensor) -> torch.Tensor:
         cols = torch.empty((n, row_stride(k_rows)), dtype=y.dtype, device=y.device)
         cols[:, :k_rows].copy_(y.T)
         y = cols[:, :k_rows].T
-    ld = y.stride(1) if n > 1 else row_stride(k_rows)
+    ld = _column_stride(y)
     out = torch.empty((n_pad, n_pad), dtype=torch.float32, device=y.device)
     fn = _syrk_lower_lib()
     err = fn(out.data_ptr(), y.data_ptr(), k_rows, n, ld,

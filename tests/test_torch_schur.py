@@ -66,7 +66,6 @@ def test_syrk_acc_cpu_keeps_upper_tiles_and_counts_no_launch():
         tps.syrk_acc(torch.zeros((n + 8, n + 8)), torch.zeros((4, n + 8)))
 
 
-
 @pytest.mark.parametrize("k_rows", [1, 63, 300])
 def test_syrk_acc_rows_off_the_stage_match_jax(interpret, k_rows):
     """K2 streams Y in 64-row stages and reads rows past k_rows as zero;
