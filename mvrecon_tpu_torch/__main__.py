@@ -1,6 +1,9 @@
-"""Command line of the port: ``python -m mvrecon_tpu_torch euclidean-large``
-builds a synthetic scene, runs the large perspective pipeline and prints
-one JSON record."""
+"""Command line of the port. Each subcommand builds a synthetic scene, runs
+one perspective pipeline and prints one JSON record:
+
+    python -m mvrecon_tpu_torch euclidean --n-images 10 --method dual
+    python -m mvrecon_tpu_torch euclidean-large --n-points 2000 --n-images 16
+"""
 
 from __future__ import annotations
 
@@ -11,20 +14,35 @@ import time
 
 import torch
 
+NOISE = 0.005  # image noise of the synthetic scenes
+
+
+def _scene_args(p: argparse.ArgumentParser, n_points: int, n_images: int, seed: int) -> None:
+    p.add_argument("--n-points", type=int, default=n_points,
+                   help="points (the curved tube gets n_points // 20 slices of 20)")
+    p.add_argument("--n-images", type=int, default=n_images)
+    p.add_argument("--seed", type=int, default=seed)
+    p.add_argument("--device", default=None, help="default: the CUDA card")
+    p.add_argument("--float64", action="store_true")
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="mvrecon_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("euclidean", help="self-calibration + dense BA on a synthetic scene")
+    _scene_args(p, n_points=200, n_images=10, seed=123)
+    p.add_argument("--method", choices=["primary", "dual"], default="dual")
+    p.add_argument("--tol", type=float, default=1e-2)
+    p.add_argument("--eig-method", choices=["eigh", "lowrank", "power"], default="eigh")
+    p.add_argument("--max-iter", type=int, default=100, help="BA iterations")
+    p.add_argument("--delta-tol", type=float, default=1e-8)
+    p.add_argument("--scale-factor", type=float, default=2.0)
+
     p = sub.add_parser("euclidean-large",
                        help="self-calibration + chunked BA on a synthetic scene")
-    p.add_argument("--n-points", type=int, default=2000,
-                   help="points (the curved tube gets n_points // 20 slices of 20)")
-    p.add_argument("--n-images", type=int, default=16)
+    _scene_args(p, n_points=2000, n_images=16, seed=0)
     p.add_argument("--chunk-size", type=int, default=768)
     p.add_argument("--max-iter", type=int, default=8, help="BA iterations")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None, help="default: the CUDA card")
-    p.add_argument("--float64", action="store_true")
     return parser
 
 
@@ -32,31 +50,39 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from .config import LMConfig, resolve_device
     from .geometry.scenes import make_synthetic_scene
-    from .models.pipelines import euclidean_reconstruction_large
+    from .models.pipelines import euclidean_reconstruction, euclidean_reconstruction_large
     from .runtime.profiling import StageTimer
 
     dev = resolve_device(args.device)
     dt = torch.float64 if args.float64 else torch.float32
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    scene = make_synthetic_scene(gen, n_images=args.n_images,
-                                 n_slices=max(1, args.n_points // 20), n_angles=20, dtype=dt)
-    config = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=args.max_iter,
-                      accept_divisor=1.0, init_damping=3e-3, damping="nielsen")
+    scene = make_synthetic_scene(gen, n_images=args.n_images, n_slices=max(1, args.n_points // 20),
+                                 n_angles=20, noise=NOISE, dtype=dt)
     timer = StageTimer()
     start = time.perf_counter()
-    res = euclidean_reconstruction_large(scene.x, config=config, chunk_size=args.chunk_size,
-                                         device=dev, timer=timer)
+    if args.command == "euclidean":
+        config = LMConfig(scale_factor=args.scale_factor, delta_tol=args.delta_tol,
+                          max_iter=args.max_iter)
+        res = euclidean_reconstruction(scene.x, tol=args.tol, method=args.method, config=config,
+                                       eig_method=args.eig_method, device=dev, timer=timer)
+        extra = {"method": args.method, "eig_method": args.eig_method}
+    else:
+        config = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=args.max_iter,
+                          accept_divisor=1.0, init_damping=3e-3, damping="nielsen")
+        res = euclidean_reconstruction_large(scene.x, config=config, chunk_size=args.chunk_size,
+                                             device=dev, timer=timer)
+        extra = {"chunk_size": args.chunk_size,
+                 "ba_solver_retries": res.ba_log["n_solver_retries"]}
     err = float(res.error)
     wall = time.perf_counter() - start
     n_points, n_views = scene.X.shape[0], args.n_images
-    floor = n_points * n_views * 2 * 0.005**2
+    floor = n_points * n_views * 2 * NOISE**2
     print(json.dumps({
-        "points": n_points, "views": n_views, "chunk_size": args.chunk_size,
+        "command": args.command, "points": n_points, "views": n_views, **extra,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "dtype": str(dt).removeprefix("torch."),
         "wall_s": wall, "stage_walls_s": timer.times,
         "calib_status": res.status, "ba_n_iter": res.n_iter,
-        "ba_solver_retries": res.ba_log["n_solver_retries"],
         "reprojection_error": err, "E_vs_noise_floor": err / floor,
     }))
     return 0

@@ -1,12 +1,23 @@
-"""Bundle-adjustment state, gauge and camera model shared by the cores.
+"""Levenberg–Marquardt bundle adjustment with point-block Schur elimination.
 
-Counterpart of the subset of ``mvrecon_tpu/models/bundle_adjustment.py``
-that the chunked core needs: the state and result tuples, the 7-DoF gauge
-(camera-0 pose plus one baseline component, kept as a mask over the full
-9F parameter vector), the projective-scale K normalization
-(``intrinsics_from_K``, docs/PARITY.md #6), the homogeneous projection
-(p, q, r), the camera-parameter derivatives and the parameter update.
-The dense LM core is not ported yet.
+Counterpart of ``mvrecon_tpu/models/bundle_adjustment.py``: the state and
+result tuples, the 7-DoF gauge (camera-0 pose plus one baseline component,
+kept as a mask over the full 9F parameter vector), the projective-scale K
+normalization (``intrinsics_from_K``, docs/PARITY.md #6), the homogeneous
+projection (p, q, r), the derivative blocks, the damped Schur solve from
+either side, and the dense LM core (``lm_step``, ``lm_optimize``,
+``bundle_adjust``). The chunked and streamed cores build on the pieces
+here.
+
+The JAX loops are ``lax.while_loop``s inside one ``jit``; here they are
+Python loops that read the accept flag from the card once per retry. A
+damped system that is not positive definite gives a NaN step, which
+rejects the trial and raises the damping, as ``cho_factor``'s NaNs do
+there. Every sum over points is a contraction inside one ``einsum`` or
+matrix product, so no (P, F, 9, 9) block is ever formed.
+
+Robust losses, distortion models, the sharded (``axis_name``) variant and
+the ``solver`` hook are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import LMConfig, as_tensor, resolve_device, result_dtype
+from ..ops.linalg import inv3x3, inv9_spd
 from ..ops.rotations import rodrigues
 
 
@@ -112,6 +125,14 @@ def calc_pqr(X: torch.Tensor, K: torch.Tensor, R: torch.Tensor, t: torch.Tensor)
     return pmat, pqr[..., 0], pqr[..., 1], pqr[..., 2]
 
 
+def reprojection_error(x, p, q, r, vis, f0: float) -> torch.Tensor:
+    """Sum of squared residuals E. r is sanitized where vis == 0 so masked
+    or padded entries cannot produce 0 * inf."""
+    r = torch.where(vis > 0, r, torch.ones_like(r))
+    e = (p / r - x[..., 0] / f0) ** 2 + (q / r - x[..., 1] / f0) ** 2
+    return torch.sum(vis * e)
+
+
 def _camera_param_derivs(state: BAState, p: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
                          f0: float):
     """(dp, dq, dr)/d(f, u0, v0, t, omega): (P, F, 9) each, for the points
@@ -145,6 +166,193 @@ def _camera_param_derivs(state: BAState, p: torch.Tensor, q: torch.Tensor, r: to
             stack(zeros, zeros, zeros, drdt_f))
 
 
+def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float):
+    """Rank-2 Jacobian factors for a set of points (all of them, or one
+    chunk): every second-derivative block is 2 * vis * (a1 (x) b1 +
+    a2 (x) b2), so downstream stages work from (a1, a2 (C, F, 3); b1, b2
+    (C, F, 9); residuals) without materializing the blocks they don't
+    need. Undistorted model, plain least squares. Returns (a1, a2, b1, b2,
+    res_p, res_q, vis_c)."""
+    st = state_cam._replace(X=X_c)
+    K = build_K(st.f, st.u, f0)
+    pmat, p, q, r = calc_pqr(X_c, K, st.R, st.t)
+
+    dpdX, dqdX, drdX = pmat[:, 0, :3], pmat[:, 1, :3], pmat[:, 2, :3]
+    dpdc, dqdc, drdc = _camera_param_derivs(st, p, q, r, f0)
+
+    r = torch.where(vis_c > 0, r, torch.ones_like(r))  # 0 * inf guard (padding)
+    res_p = p / r - x_c[..., 0] / f0
+    res_q = q / r - x_c[..., 1] / f0
+
+    inv_r2 = (1.0 / (r * r))[..., None]
+    r_, p_, q_ = r[..., None], p[..., None], q[..., None]
+    a1 = (r_ * dpdX[None] - p_ * drdX[None]) * inv_r2
+    a2 = (r_ * dqdX[None] - q_ * drdX[None]) * inv_r2
+    # (C, F, 9) planes, built in place and freed as soon as they are used:
+    # the derivative planes are the largest temporaries
+    b1 = dpdc.mul_(r_).sub_(p_ * drdc).mul_(inv_r2)
+    del dpdc
+    b2 = dqdc.mul_(r_).sub_(q_ * drdc).mul_(inv_r2)
+    del dqdc, drdc
+    return a1, a2, b1, b2, res_p, res_q, vis_c
+
+
+def _point_grad_and_block(a1, a2, res_p, res_q, vis_c):
+    """d_P (C, 3) and matE (C, 3, 3) from the factors (with the unseen-
+    point identity guard), each a contraction over the camera axis."""
+    vis_d = vis_c.expand(res_p.shape)
+    d_P = 2.0 * (torch.einsum("pf,pfx->px", vis_d * res_p, a1)
+                 + torch.einsum("pf,pfx->px", vis_d * res_q, a2))
+    visf = vis_d[..., None]
+    matE = 2.0 * (torch.einsum("pfi,pfj->pij", visf * a1, a1)
+                  + torch.einsum("pfi,pfj->pij", visf * a2, a2))
+    seen = (torch.sum(vis_d, dim=1) > 0).to(matE.dtype)
+    matE = matE + (1.0 - seen)[:, None, None] * torch.eye(3, dtype=matE.dtype, device=matE.device)
+    return d_P, matE
+
+
+def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float):
+    """Derivative blocks for a set of C points: d_P (C, 3), the masked d_F
+    (9F,), matE (C, 3, 3), matF (C, 3, 9F) with unmasked columns, matG
+    (F, 9, 9) and the error of these points.
+
+    Each sum over points is written as a contraction over the point axis
+    (a batched product over cameras), and matF is written once in place,
+    so no (C, F, 9, 9) or per-term (C, 3, F, 9) temporary exists."""
+    nf = state_cam.f.shape[0]
+    npts_c = X_c.shape[0]
+    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(state_cam, X_c, x_c, vis_c, f0)
+    vis_d = vis_c.expand(res_p.shape)
+    e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2))
+
+    d_F = 2.0 * (torch.einsum("pf,pfj->fj", vis_d * res_p, b1)
+                 + torch.einsum("pf,pfj->fj", vis_d * res_q, b2))
+    d_F = d_F.reshape(9 * nf) * free
+
+    d_P, matE = _point_grad_and_block(a1, a2, res_p, res_q, vis_c)
+
+    visf = vis_d[..., None]
+    matG = 2.0 * (torch.einsum("pfi,pfj->fij", visf * b1, b1)
+                  + torch.einsum("pfi,pfj->fij", visf * b2, b2))
+    # matF[p, i, f, j] = 2 vis (a1[p, f, i] b1[p, f, j] + a2[p, f, i] b2[p, f, j])
+    va1, va2 = (2.0 * visf) * a1, (2.0 * visf) * a2
+    matF = torch.empty((npts_c, 3, nf, 9), dtype=b1.dtype, device=b1.device)
+    for i in range(3):
+        torch.mul(va1[..., i:i + 1], b1, out=matF[:, i])
+        matF[:, i].addcmul_(va2[..., i:i + 1], b2)
+    return d_P, d_F, matE, matF.view(npts_c, 3, 9 * nf), matG, e_chunk
+
+
+class _Derivs(NamedTuple):
+    """Derivative blocks of one outer LM iteration."""
+
+    d_P: torch.Tensor  # (P, 3) gradient wrt points
+    d_F: torch.Tensor  # (9F,) gradient wrt cameras (gauge-masked)
+    matE: torch.Tensor  # (P, 3, 3) point blocks
+    matF: torch.Tensor  # (P, 3, 9F) coupling blocks (gauge-masked columns)
+    matG: torch.Tensor  # (F, 9, 9) camera blocks
+
+
+def _compute_derivs(state: BAState, x, vis, free, f0: float):
+    """All first and second derivative blocks for one outer LM iteration.
+    Returns (derivs, current E). vis is (P, F), or a (P, 1) column that
+    broadcasts."""
+    d_P, d_F, matE, matF, matG, e_now = _chunk_blocks(state, state.X, x, vis, free, f0)
+    return _Derivs(d_P=d_P, d_F=d_F, matE=matE, matF=matF.mul_(free), matG=matG), e_now
+
+
+def _damp(m: torch.Tensor, c) -> torch.Tensor:
+    """Blocks (..., n, n) with their diagonals scaled by (1 + c)."""
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    return m + c * m * eye
+
+
+def _chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the SPD system a x = b by Cholesky. A factor that fails (the
+    damped system is not positive definite) gives a NaN solution, so the
+    trial is rejected like any other, as ``cho_factor``'s NaNs are in the
+    JAX package; the check stays on the card."""
+    l, info = torch.linalg.cholesky_ex(a)
+    sol = torch.cholesky_solve(b[:, None], l)[:, 0]
+    return torch.where(info == 0, sol, torch.full_like(sol, float("nan")))
+
+
+def _reduced_camera_system(schur: torch.Tensor, matGc: torch.Tensor, free: torch.Tensor):
+    """(9F, 9F) damped reduced camera system blockdiag(Gc) - schur, with
+    identity rows and columns at the gauge-fixed parameters."""
+    nf = matGc.shape[0]
+    a = -schur
+    torch.diagonal(a.view(nf, 9, nf, 9), dim1=0, dim2=2).add_(matGc.permute(1, 2, 0))
+    return a * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
+
+
+def _camera_side_solve(derivs: _Derivs, matEc, matGc, free):
+    """Camera-block elimination of the same damped system, for 3P < 9F: the
+    camera blocks are 9x9 block-diagonal, so their inverse is closed form
+    (``inv9_spd``) and the dense solve is (3P, 3P). Fixed parameters move
+    exactly zero."""
+    npts = derivs.matE.shape[0]
+    nf9 = derivs.matF.shape[2]
+    nf = nf9 // 9
+    free_b = free.view(nf, 9)
+    matGm = matGc * (free_b[:, :, None] * free_b[:, None, :])
+    matGm = matGm + torch.eye(9, dtype=matGc.dtype, device=matGc.device) * (1.0 - free_b)[:, :, None]
+    ginv = inv9_spd(matGm)  # (F, 9, 9)
+
+    fc = derivs.matF.view(npts, 3, nf, 9)
+    h = torch.einsum("pifa,fab->pifb", fc, ginv).reshape(npts * 3, nf9)
+    # the (3P, 3P) Schur complement of the camera block, one product
+    s = -(h @ derivs.matF.view(npts * 3, nf9).T)
+    torch.diagonal(s.view(npts, 3, npts, 3), dim1=0, dim2=2).add_(matEc.permute(1, 2, 0))
+
+    d_F = derivs.d_F.view(nf, 9)
+    gd = torch.einsum("fab,fb->fa", ginv, d_F)
+    rhs = -derivs.d_P + torch.einsum("pifa,fa->pi", fc, gd)
+    delta_x = _chol_solve(s, rhs.reshape(npts * 3)).view(npts, 3)
+
+    ftdx = torch.einsum("pifa,pi->fa", fc, delta_x)
+    delta_xi = -torch.einsum("fab,fb->fa", ginv, d_F + ftdx).reshape(nf9)
+    return delta_xi * free, delta_x
+
+
+def _damped_solve(derivs: _Derivs, c, free):
+    """Solve the damped normal equations by the point-block Schur
+    complement, or from the camera side when 3P < 9F. Returns (delta_xi
+    (9F,), delta_X (P, 3)); gauge-fixed entries of delta_xi are exactly
+    zero."""
+    npts = derivs.matE.shape[0]
+    nf9 = derivs.matF.shape[2]
+    matEc = _damp(derivs.matE, c)
+    matGc = _damp(derivs.matG, c)
+    if npts * 3 < nf9:
+        return _camera_side_solve(derivs, matEc, matGc, free)
+
+    einv = inv3x3(matEc)  # (P, 3, 3)
+    einv_f = torch.einsum("pxy,pym->pxm", einv, derivs.matF)  # (P, 3, 9F)
+    # A = blockdiag(Gc) - sum_p F^T Einv F as one (9F, 3P) x (3P, 9F) product
+    schur = derivs.matF.view(npts * 3, nf9).T @ einv_f.view(npts * 3, nf9)
+    a = _reduced_camera_system(schur, matGc, free)
+    del schur
+    b = torch.einsum("pxm,px->m", einv_f, derivs.d_P) - derivs.d_F
+    del einv_f
+    delta_xi = _chol_solve(a, b) * free
+
+    rhs = torch.einsum("pxm,m->px", derivs.matF, delta_xi) + derivs.d_P
+    delta_x = -torch.einsum("pxy,py->px", einv, rhs)
+    return delta_xi, delta_x
+
+
+def _predicted_reduction(derivs: _Derivs, delta_xi, delta_x, c) -> torch.Tensor:
+    """Predicted decrease of the damped quadratic model,
+    1/2 (c d^T D d - g^T d) with D = diag(H): the denominator of the
+    Nielsen gain ratio."""
+    diag_e = torch.diagonal(derivs.matE, dim1=-2, dim2=-1)  # (P, 3)
+    diag_g = torch.diagonal(derivs.matG, dim1=-2, dim2=-1).reshape(-1)  # (9F,)
+    dDd = torch.sum(delta_x * diag_e * delta_x) + torch.sum(delta_xi * diag_g * delta_xi)
+    g_d = torch.sum(derivs.d_P * delta_x) + torch.sum(derivs.d_F * delta_xi)
+    return 0.5 * (c * dDd - g_d)
+
+
 def _apply_update(state: BAState, delta_xi: torch.Tensor, delta_x: torch.Tensor) -> BAState:
     """Parameter update; rotations through the axis-angle exponential."""
     d = delta_xi.reshape(state.f.shape[0], 9)
@@ -163,3 +371,179 @@ def _distorted_residual(state: BAState, p, q, r, x, f0: float, dist=None):
     if dist is not None:
         raise NotImplementedError("distortion models are not ported yet")
     return p / r - x[..., 0] / f0, q / r - x[..., 1] / f0
+
+
+def _residuals(state: BAState, x, vis, f0: float):
+    """Per-observation (res_p, res_q), masked entries sanitized."""
+    K = build_K(state.f, state.u, f0)
+    _, p, q, r = calc_pqr(state.X, K, state.R, state.t)
+    r = torch.where(vis > 0, r, torch.ones_like(r))
+    return _distorted_residual(state, p, q, r, x, f0)
+
+
+def _state_error(state: BAState, x, vis, f0: float) -> torch.Tensor:
+    """Reprojection error E of ``state`` over the observations x (P, F, 2)."""
+    _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
+    return reprojection_error(x, p, q, r, vis, f0)
+
+
+def _check_ported(config: LMConfig, axis_name=None, dist=None, solver=None) -> None:
+    """Raise for the options whose code is not ported yet."""
+    if axis_name is not None:
+        raise NotImplementedError("the sharded cores are not ported yet")
+    if solver is not None:
+        raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet")
+    if dist is not None or config.distortion_rounds > 0:
+        raise NotImplementedError("distortion models are not ported yet")
+    if config.robust not in (None, "", "none"):
+        raise NotImplementedError("robust losses are not ported yet")
+
+
+def lm_step(x, state: BAState, vis, free, f0: float, c):
+    """One damped Gauss-Newton/LM step: derivatives -> Schur solve ->
+    update -> new error. Returns (new_state, error_before, error_after)."""
+    derivs, e0 = _compute_derivs(state, x, vis, free, f0)
+    delta_xi, delta_x = _damped_solve(derivs, c, free)
+    new = _apply_update(state, delta_xi, delta_x)
+    return new, e0, _state_error(new, x, vis, f0)
+
+
+def _lm_damping(config: LMConfig, accepted, c, nu, e_prev, e_trial, pred):
+    """Next (c, nu) after one trial: the reference schedule multiplies c by
+    ``scale_factor`` on a rejection; the Nielsen schedule follows the gain
+    ratio ``pred`` (the predicted reduction, None under the reference
+    schedule), with c <= 1e25 and nu <= 1e12 so a run of rejections stays
+    finite in float32."""
+    if config.damping != "nielsen":
+        return torch.where(accepted, c, c * config.scale_factor), nu
+    rho = (e_prev - e_trial) / pred.clamp_min(1e-30)
+    shrink = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
+    c = torch.where(accepted, c * shrink, c * nu).clamp_max(1e25)
+    nu = torch.where(accepted, torch.full_like(nu, 2.0), (nu * 2.0).clamp_max(1e12))
+    return c, nu
+
+
+def lm_optimize(x, state0: BAState, vis, free, f0: float, config: LMConfig, axis_name=None,
+                init_c=None, solver=None, dist=None, init_nu=None):
+    """Levenberg–Marquardt outer loop. The inner retry re-damps and
+    re-solves from the same derivative blocks until the trial error does
+    not exceed the current one (at most ``max_inner_retries`` times); if no
+    trial is accepted, the state and error stay and the loop stops. The
+    reference schedule divides c by ``config.divisor`` after each
+    iteration; stop when |E' - E| <= delta_tol or after max_iter.
+    ``init_c``/``init_nu`` resume a previous segment's damping.
+
+    Returns (state, error, c, nu, n_iter, log): with ``config.record_log``
+    the log holds "points", "basis", "pos" and "reprojection_error" stacked
+    over max_iter + 1 rows (zero past the last iteration), else None."""
+    _check_ported(config, axis_name, dist, solver)
+    dt, dev = x.dtype, x.device
+    state = state0
+    e_prev = _state_error(state0, x, vis, f0)
+    history = [(state0, e_prev)] if config.record_log else None
+    c = as_tensor(config.init_damping if init_c is None else init_c, dev, dt)
+    nu = as_tensor(2.0 if init_nu is None else init_nu, dev, dt)
+    n_iter = 0
+    while n_iter < config.max_iter:
+        derivs, _ = _compute_derivs(state, x, vis, free, f0)
+        accepted = False
+        tries = 0
+        while not accepted and tries < config.max_inner_retries:
+            delta_xi, delta_x = _damped_solve(derivs, c, free)
+            trial = _apply_update(state, delta_xi, delta_x)
+            e_trial = _state_error(trial, x, vis, f0)
+            acc_t = e_trial <= e_prev
+            pred = (_predicted_reduction(derivs, delta_xi, delta_x, c)
+                    if config.damping == "nielsen" else None)
+            c, nu = _lm_damping(config, acc_t, c, nu, e_prev, e_trial, pred)
+            tries += 1
+            # the one host read of the retry: accepted, and converged if so
+            accepted, done = torch.stack(
+                [acc_t, torch.abs(e_trial - e_prev) <= config.delta_tol]
+            ).tolist()
+        del derivs
+        if accepted:
+            state, e_prev = trial, e_trial
+        else:  # never accepted (divergence/NaN): keep the state and stop
+            done = True
+        if config.damping != "nielsen":
+            c = c / config.divisor
+        n_iter += 1
+        if history is not None:
+            history.append((state, e_prev))
+        if done:
+            break
+    return state, e_prev, c, nu, n_iter, _stack_log(history, config.max_iter)
+
+
+def _stack_log(history, max_iter: int) -> dict | None:
+    """The recorded (state, E) pairs as (max_iter + 1, ...) tensors, zero
+    past the last iteration, under the JAX package's log keys."""
+    if history is None:
+        return None
+    states, errors = zip(*history)
+    columns = {"points": [s.X for s in states], "basis": [s.R for s in states],
+               "pos": [s.t for s in states], "reprojection_error": errors}
+    log = {}
+    for key, rows in columns.items():
+        rows = torch.stack(rows)
+        log[key] = rows.new_zeros((max_iter + 1,) + rows.shape[1:])
+        log[key][: len(history)] = rows
+    return log
+
+
+def _prepare_problem(x, init_X, init_K, init_R, init_t, f0: float, visibility, axis: str,
+                     device):
+    """Tensors on the device in x's dtype, the gauge-normalized start and
+    the gauge mask: (x, vis, state0, free, restore info). Without a
+    visibility mask, vis is a (P, 1) column that broadcasts through every
+    masked reduction."""
+    dev = resolve_device(device)
+    dt = result_dtype(x)
+    x = as_tensor(x, dev, dt)
+    npts, nf, _ = x.shape
+    if visibility is None:
+        vis = torch.ones((npts, 1), dtype=dt, device=dev)
+    else:
+        vis = as_tensor(visibility, dev, dt)
+        # masked observations may hold any value; zero them so 0 * nan
+        # cannot leak through the masked sums
+        x = torch.where(vis[..., None] > 0, x, 0.0)
+    X0, R0, t0, info = normalize_gauge(
+        as_tensor(init_X, dev, dt), as_tensor(init_R, dev, dt), as_tensor(init_t, dev, dt), axis
+    )
+    f_in, u_in = intrinsics_from_K(as_tensor(init_K, dev, dt), f0)
+    state0 = BAState(X=X0, f=f_in, u=u_in, t=t0, R=R0)
+    return x, vis, state0, gauge_mask(nf, axis, dt, dev), info
+
+
+def bundle_adjust(
+    x,
+    init_X,
+    init_K,
+    init_R,
+    init_t,
+    f0: float = 1.0,
+    visibility=None,
+    axis: str = "x-right_z-forward",
+    config: LMConfig = LMConfig(),
+    distortion=None,
+    init_c=None,
+    init_nu=None,
+    device=None,
+) -> BAResult:
+    """Full bundle adjustment: gauge-normalize, LM-optimize, restore.
+    x (P, F, 2); init_K/R/t (F, ...); the optional visibility is (P, F).
+    Runs on the card unless ``device`` says otherwise; the working dtype
+    is x's. The returned ``log`` always carries the final damping (c, nu),
+    so a segmented run resumes through ``init_c``/``init_nu``."""
+    _check_ported(config, dist=distortion)
+    x, vis, state0, free, info = _prepare_problem(
+        x, init_X, init_K, init_R, init_t, f0, visibility, axis, device
+    )
+    final, e, c_f, nu_f, n_iter, log = lm_optimize(
+        x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu
+    )
+    Xg, Rg, tg = restore_gauge(info, final.X, final.R, final.t)
+    return BAResult(X=Xg, K=build_K(final.f, final.u, f0), R=Rg, t=tg, error=e,
+                    n_iter=n_iter, log={**(log or {}), "c": c_f, "nu": nu_f})

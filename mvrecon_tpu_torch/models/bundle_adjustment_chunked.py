@@ -16,9 +16,9 @@ as ``cho_factor``'s NaNs do there. The per-chunk scalars stay on the
 device; the host reads the accept flag once per retry.
 
 The non-fused per-chunk blocks (``_chunk_factors``, ``_point_grad_and_block``,
-``_chunk_blocks``) serve the host-streamed core
-(``bundle_adjustment_streamed.py``); the non-fused build over them waits
-for the distortion slice.
+``_chunk_blocks`` in ``bundle_adjustment.py``) serve the dense and the
+host-streamed cores; the non-fused chunked build over them waits for the
+distortion slice.
 
 Robust losses, distortion and the sharded (``axis_name``) variant are not
 ported yet and raise ``NotImplementedError``.
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import LMConfig, as_tensor, resolve_device, result_dtype
+from ..config import LMConfig, as_tensor
 from ..ops.fused_schur import (
     assemble_type_major,
     finish_schur,
@@ -41,93 +41,14 @@ from .bundle_adjustment import (
     BAResult,
     BAState,
     _apply_update,
-    _camera_param_derivs,
-    _distorted_residual,
+    _check_ported,
+    _chol_solve,
+    _lm_damping,
+    _prepare_problem,
+    _state_error,
     build_K,
-    calc_pqr,
-    gauge_mask,
-    intrinsics_from_K,
-    normalize_gauge,
     restore_gauge,
 )
-
-
-def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float):
-    """Rank-2 Jacobian factors for one point chunk: every second-derivative
-    block is 2 * vis * (a1 (x) b1 + a2 (x) b2), so downstream stages work
-    from (a1, a2 (C, F, 3); b1, b2 (C, F, 9); residuals) without
-    materializing the blocks they don't need. Undistorted model, plain
-    least squares. Returns (a1, a2, b1, b2, res_p, res_q, vis_c)."""
-    st = state_cam._replace(X=X_c)
-    K = build_K(st.f, st.u, f0)
-    pmat, p, q, r = calc_pqr(X_c, K, st.R, st.t)
-
-    dpdX, dqdX, drdX = pmat[:, 0, :3], pmat[:, 1, :3], pmat[:, 2, :3]
-    dpdc, dqdc, drdc = _camera_param_derivs(st, p, q, r, f0)
-
-    r = torch.where(vis_c > 0, r, torch.ones_like(r))  # 0 * inf guard (padding)
-    res_p = p / r - x_c[..., 0] / f0
-    res_q = q / r - x_c[..., 1] / f0
-
-    inv_r2 = (1.0 / (r * r))[..., None]
-    r_, p_, q_ = r[..., None], p[..., None], q[..., None]
-    a1 = (r_ * dpdX[None] - p_ * drdX[None]) * inv_r2
-    a2 = (r_ * dqdX[None] - q_ * drdX[None]) * inv_r2
-    # (C, F, 9) planes, built in place and freed as soon as they are used:
-    # the derivative planes are the chunk's largest temporaries
-    b1 = dpdc.mul_(r_).sub_(p_ * drdc).mul_(inv_r2)
-    del dpdc
-    b2 = dqdc.mul_(r_).sub_(q_ * drdc).mul_(inv_r2)
-    del dqdc, drdc
-    return a1, a2, b1, b2, res_p, res_q, vis_c
-
-
-def _point_grad_and_block(a1, a2, res_p, res_q, vis_c):
-    """d_P (C, 3) and matE (C, 3, 3) from the factors (with the unseen-
-    point identity guard), each a contraction over the camera axis."""
-    vis_d = vis_c.expand(res_p.shape)
-    d_P = 2.0 * (torch.einsum("pf,pfx->px", vis_d * res_p, a1)
-                 + torch.einsum("pf,pfx->px", vis_d * res_q, a2))
-    visf = vis_d[..., None]
-    matE = 2.0 * (torch.einsum("pfi,pfj->pij", visf * a1, a1)
-                  + torch.einsum("pfi,pfj->pij", visf * a2, a2))
-    seen = (torch.sum(vis_d, dim=1) > 0).to(matE.dtype)
-    matE = matE + (1.0 - seen)[:, None, None] * torch.eye(3, dtype=matE.dtype, device=matE.device)
-    return d_P, matE
-
-
-def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float):
-    """Derivative blocks for one point chunk (C points): d_P (C, 3), the
-    masked d_F (9F,), matE (C, 3, 3), matF (C, 3, 9F), matG (F, 9, 9) and
-    the chunk's error.
-
-    Each sum over points is written as a contraction over the point axis
-    (a batched product over cameras), and matF is written once in place,
-    so no (C, F, 9, 9) or per-term (C, 3, F, 9) temporary exists."""
-    nf = state_cam.f.shape[0]
-    npts_c = X_c.shape[0]
-    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(state_cam, X_c, x_c, vis_c, f0)
-    vis_d = vis_c.expand(res_p.shape)
-    e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2))
-
-    d_F = 2.0 * (torch.einsum("pf,pfj->fj", vis_d * res_p, b1)
-                 + torch.einsum("pf,pfj->fj", vis_d * res_q, b2))
-    d_F = d_F.reshape(9 * nf) * free
-
-    d_P, matE = _point_grad_and_block(a1, a2, res_p, res_q, vis_c)
-
-    visf = vis_d[..., None]
-    matG = 2.0 * (torch.einsum("pfi,pfj->fij", visf * b1, b1)
-                  + torch.einsum("pfi,pfj->fij", visf * b2, b2))
-    # matF[p, i, f, j] = 2 vis (a1[p, f, i] b1[p, f, j] + a2[p, f, i] b2[p, f, j])
-    va1, va2 = (2.0 * visf) * a1, (2.0 * visf) * a2
-    matF = torch.empty((npts_c, 3, nf, 9), dtype=b1.dtype, device=b1.device)
-    for i in range(3):
-        torch.mul(va1[..., i:i + 1], b1, out=matF[:, i])
-        matF[:, i].addcmul_(va2[..., i:i + 1], b2)
-    # no free-mask multiply: the assembled system is gauge-projected and
-    # delta_xi is masked after the solve
-    return d_P, d_F, matE, matF.view(npts_c, 3, 9 * nf), matG, e_chunk
 
 
 def _kadd(acc, x):
@@ -184,18 +105,13 @@ def _backsub_and_trial(cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi
 
 
 def _solve_cam(a: torch.Tensor, b: torch.Tensor, jacobi_scaling: bool) -> torch.Tensor:
-    """Damped camera solve by Cholesky. A factor that fails (the damped
-    system is not positive definite) yields a NaN step, so the trial is
-    rejected like any other. With ``jacobi_scaling`` the system is
+    """Damped camera solve by Cholesky (a factor that fails gives a NaN
+    step, ``_chol_solve``). With ``jacobi_scaling`` the system is
     symmetrically diag-scaled first."""
-    if jacobi_scaling:
-        s = torch.rsqrt(torch.diagonal(a))
-        a = a * (s[:, None] * s[None, :])
-        b = b * s
-    l, info = torch.linalg.cholesky_ex(a)
-    sol = torch.cholesky_solve(b[:, None], l)[:, 0]
-    sol = torch.where(info == 0, sol, torch.full_like(sol, float("nan")))
-    return sol * s if jacobi_scaling else sol
+    if not jacobi_scaling:
+        return _chol_solve(a, b)
+    s = torch.rsqrt(torch.diagonal(a))
+    return _chol_solve(a * (s[:, None] * s[None, :]), b * s) * s
 
 
 def lm_optimize_chunked(
@@ -215,12 +131,7 @@ def lm_optimize_chunked(
     (state, error, c, nu, n_iter, total_solver_retries, log): the log is
     ``{"reprojection_error": (max_iter + 1,)}`` with ``config.record_log``
     (zero past the last iteration), else None."""
-    if axis_name is not None:
-        raise NotImplementedError("the sharded chunked core is not ported yet")
-    if dist is not None:
-        raise NotImplementedError("distortion models are not ported yet")
-    if config.robust is not None:
-        raise NotImplementedError("robust losses are not ported yet")
+    _check_ported(config, axis_name, dist)
     npts = x.shape[0]
     dt = x.dtype
     dev = x.device
@@ -235,13 +146,9 @@ def lm_optimize_chunked(
     cam = state0._replace(X=torch.zeros((0, 3), dtype=dt, device=dev))
     X_ch = list(X0.split(chunk_size))
 
-    K0 = build_K(cam.f, cam.u, f0)
     e_prev = torch.zeros((), dtype=dt, device=dev)
     for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
-        _, p, q, r = calc_pqr(X_c, K0, cam.R, cam.t)
-        r = torch.where(vis_c > 0, r, torch.ones_like(r))
-        res_p, res_q = _distorted_residual(cam, p, q, r, x_c, f0)
-        e_prev = e_prev + torch.sum(vis_c * (res_p**2 + res_q**2))
+        e_prev = e_prev + _state_error(cam._replace(X=X_c), x_c, vis_c, f0)
 
     log_e = [e_prev] if config.record_log else None
     nielsen = config.damping == "nielsen"
@@ -267,16 +174,12 @@ def lm_optimize_chunked(
                 cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi
             )
             acc_t = e_trial <= e_base
+            pred = None
             if nielsen:
                 dDd = dDd_pts + torch.sum(delta_xi * diag_g * delta_xi)
                 g_d = gd_pts + torch.sum(d_f * delta_xi)
                 pred = 0.5 * (c * dDd - g_d)
-                rho = (e_base - e_trial) / pred.clamp_min(1e-30)
-                shrink = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
-                c = torch.where(acc_t, c * shrink, c * nu).clamp_max(1e25)
-                nu = torch.where(acc_t, torch.full_like(nu, 2.0), (nu * 2.0).clamp_max(1e12))
-            else:
-                c = torch.where(acc_t, c, c * config.scale_factor)
+            c, nu = _lm_damping(config, acc_t, c, nu, e_base, e_trial, pred)
             tries += 1
             # the one host read of the retry: accepted, and converged if so
             accepted, done = torch.stack(
@@ -326,26 +229,10 @@ def bundle_adjust_chunked(
     Runs on the card unless ``device`` says otherwise; the working dtype
     is x's. The returned ``log`` carries the final damping (c, nu) so a
     segmented run resumes through ``init_c``/``init_nu``."""
-    if distortion is not None or config.distortion_rounds > 0:
-        raise NotImplementedError("distortion models are not ported yet")
-    dev = resolve_device(device)
-    dt = result_dtype(x)
-    x = as_tensor(x, dev, dt)
-    npts, nf, _ = x.shape
-    if visibility is None:
-        # a (P, 1) column broadcasts through every masked reduction
-        vis = torch.ones((npts, 1), dtype=dt, device=dev)
-    else:
-        vis = as_tensor(visibility, dev, dt)
-        # masked observations may hold any value; zero them so 0 * nan
-        # cannot leak through the masked sums
-        x = torch.where(vis[..., None] > 0, x, 0.0)
-    X0, R0, t0, info = normalize_gauge(
-        as_tensor(init_X, dev, dt), as_tensor(init_R, dev, dt), as_tensor(init_t, dev, dt), axis
+    _check_ported(config, dist=distortion)
+    x, vis, state0, free, info = _prepare_problem(
+        x, init_X, init_K, init_R, init_t, f0, visibility, axis, device
     )
-    f_in, u_in = intrinsics_from_K(as_tensor(init_K, dev, dt), f0)
-    state0 = BAState(X=X0, f=f_in, u=u_in, t=t0, R=R0)
-    free = gauge_mask(nf, axis, dt, dev)
 
     final, e, c_f, nu_f, n_iter, n_retries, scalar_log = lm_optimize_chunked(
         x, state0, vis, free, f0, config, chunk_size, init_c=init_c, init_nu=init_nu,

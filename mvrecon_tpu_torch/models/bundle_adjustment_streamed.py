@@ -37,19 +37,18 @@ from .bundle_adjustment import (
     BAResult,
     BAState,
     _apply_update,
-    _distorted_residual,
+    _chol_solve,
+    _chunk_blocks,
+    _chunk_factors,
+    _damp,
+    _point_grad_and_block,
+    _reduced_camera_system,
+    _state_error,
     build_K,
-    calc_pqr,
     gauge_mask,
     intrinsics_from_K,
     normalize_gauge,
     restore_gauge,
-)
-from .bundle_adjustment_chunked import (
-    _chunk_blocks,
-    _chunk_factors,
-    _point_grad_and_block,
-    _solve_cam,
 )
 
 
@@ -58,8 +57,7 @@ def _accumulate_chunk(accs, cam: BAState, X_c, x_c, vis_c, free, c: float, f0: f
     accumulators (schur, b, G, d_F, E) and return them."""
     schur_acc, b_acc, g_acc, df_acc, e_acc = accs
     d_P, d_F, matE, matF, matG, e_chunk = _chunk_blocks(cam, X_c, x_c, vis_c, free, f0)
-    eye3 = torch.eye(3, dtype=matE.dtype, device=matE.device)
-    linv = inv_lower3(chol3x3(matE + c * matE * eye3[None]))
+    linv = inv_lower3(chol3x3(_damp(matE, c)))
     npts_c, _, nf9 = matF.shape
     # Yᵀ (9F, 3C) = (L⁻¹F)ᵀ, written by the product itself in rows that
     # start on 128-byte lines: its transpose Y (3C, 9F) is K-major, as K1
@@ -79,16 +77,8 @@ def _assemble_and_solve(accs, free, c: float):
     """Damped reduced camera system from the accumulators -> (delta_xi,
     E_now). A factorization that fails gives a NaN step."""
     schur, b_p, g, d_f, e_now = accs
-    nf9 = schur.shape[0]
-    nf = nf9 // 9
-    gc = g + c * g * torch.eye(9, dtype=g.dtype, device=g.device)[None]
-    a = (-schur).reshape(nf, 9, nf, 9)
-    idx = torch.arange(nf, device=a.device)
-    a[idx, :, idx, :] += gc
-    a = a.reshape(nf9, nf9)
-    a = a * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
-    delta_xi = _solve_cam(a, b_p - d_f, jacobi_scaling=False) * free
-    return delta_xi, e_now
+    a = _reduced_camera_system(schur, _damp(g, c), free)
+    return _chol_solve(a, b_p - d_f) * free, e_now
 
 
 def _backsub_chunk(cam: BAState, trial_cam: BAState, X_c, x_c, vis_c, free, c: float,
@@ -97,8 +87,7 @@ def _backsub_chunk(cam: BAState, trial_cam: BAState, X_c, x_c, vis_c, free, c: f
     Returns (X_new_c, e_trial_c)."""
     a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(cam, X_c, x_c, vis_c, f0)
     d_P, matE = _point_grad_and_block(a1, a2, res_p, res_q, vis_c)
-    eye3 = torch.eye(3, dtype=matE.dtype, device=matE.device)
-    einv = inv3x3(matE + c * matE * eye3[None])
+    einv = inv3x3(_damp(matE, c))
     nf = cam.f.shape[0]
     dxi = (delta_xi * free).reshape(nf, 9)
     vis_d = vis_c.expand(res_p.shape)
@@ -107,20 +96,11 @@ def _backsub_chunk(cam: BAState, trial_cam: BAState, X_c, x_c, vis_c, free, c: f
     f_dxi = 2.0 * (torch.einsum("pf,pfx->px", s1, a1) + torch.einsum("pf,pfx->px", s2, a2))
     delta_x = -torch.einsum("pxy,py->px", einv, f_dxi + d_P)
     X_new = X_c + delta_x
-
-    K_trial = build_K(trial_cam.f, trial_cam.u, f0)
-    _, p, q, r = calc_pqr(X_new, K_trial, trial_cam.R, trial_cam.t)
-    r = torch.where(vis_c > 0, r, torch.ones_like(r))
-    res_tp, res_tq = _distorted_residual(trial_cam, p, q, r, x_c, f0)
-    return X_new, torch.sum(vis_c * (res_tp**2 + res_tq**2))
+    return X_new, _state_error(trial_cam._replace(X=X_new), x_c, vis_c, f0)
 
 
 def _chunk_error(cam: BAState, X_c, x_c, vis_c, f0: float):
-    K = build_K(cam.f, cam.u, f0)
-    _, p, q, r = calc_pqr(X_c, K, cam.R, cam.t)
-    r = torch.where(vis_c > 0, r, torch.ones_like(r))
-    res_p, res_q = _distorted_residual(cam, p, q, r, x_c, f0)
-    return torch.sum(vis_c * (res_p**2 + res_q**2))
+    return _state_error(cam._replace(X=X_c), x_c, vis_c, f0)
 
 
 class _ChunkFeed:

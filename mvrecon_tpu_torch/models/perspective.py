@@ -2,9 +2,10 @@
 
 Counterpart of ``mvrecon_tpu/models/perspective.py``: projective-depth
 estimation (primary and dual methods, each with ``eig_method`` ``eigh`` or
-``lowrank``), rank-4 factorization, Euclidean upgrading through the dual
-absolute quadric, metric reconstruction with the cheirality fix, and the
-world-axis prediction.
+``lowrank``, or ``power``: the depth loop's ``lowrank`` with the SVD
+factorization after it, as in the JAX package), rank-4 factorization,
+Euclidean upgrading through the dual absolute quadric, metric
+reconstruction with the cheirality fix, and the world-axis prediction.
 
 The bounded ``lax.while_loop``s of the JAX package are bounded Python loops
 with the same stopping rules; each iteration reads its stopping scalar
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.factorization import factorization_method
-from ..ops.linalg import det3x3, inv3x3, min_eigvec_sym, polar_orthogonal3
+from ..ops.linalg import det3x3, eigh, inv3x3, min_eigvec_sym, polar_orthogonal3
 from ..ops.moments import fourth_moment_matrix, sym_expand, sym_reduce
 from ..ops.rotations import unit_vec
 
@@ -66,14 +67,14 @@ def _sign_fix(xi: torch.Tensor) -> torch.Tensor:
 
 def _top_eigvec(mat: torch.Tensor) -> torch.Tensor:
     """Leading eigenvector of a batch of symmetric matrices (..., N, N)."""
-    return torch.linalg.eigh(mat)[1][..., -1]
+    return eigh(mat)[1][..., -1]
 
 
 def _top_eigvec_lowrank(y: torch.Tensor) -> torch.Tensor:
     """Leading eigenvector of the PSD Gram A = Y Y^T from its thin factor
     Y (..., N, r): eigh of the r x r Gram Y^T Y plus one matvec."""
     gram = torch.einsum("...na,...nb->...ab", y, y)
-    vecs = torch.linalg.eigh(gram)[1]
+    vecs = eigh(gram)[1]
     xi = torch.einsum("...na,...a->...n", y, vecs[..., -1])
     return xi / torch.linalg.norm(xi, dim=-1, keepdim=True)
 
@@ -192,7 +193,7 @@ def _depth_step_dual(xh, z, f0: float, eig_method: str = "eigh"):
             y = v4.T[None, :, None, :] * xn[:, None, :, :]  # (F, 4, 3, P)
             xi_t = _top_eigvec_lowrank(y.reshape(nf, 12, npts).transpose(1, 2))
         else:
-            vecs = torch.linalg.eigh(_kr_gram(v4, xn))[1]
+            vecs = eigh(_kr_gram(v4, xn))[1]
             xi_t = _kr_xi(v4, xn, vecs[..., -1])
             xi_t = xi_t / torch.linalg.norm(xi_t, dim=-1, keepdim=True)
             # per-image deterministic sign: the eigensolver's is arbitrary
@@ -224,9 +225,12 @@ def projective_depths(
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Iterate projective depths z (P, F) until the factorization's RMS
     reprojection error < tolerance (do-while; max_iter 200 primary / 50
-    dual). Returns (z, final_error, n_iters)."""
+    dual). ``eig_method="power"`` is the JAX package's older name for
+    ``"lowrank"``. Returns (z, final_error, n_iters)."""
     if max_iter is None:
         max_iter = 200 if method == "primary" else 50
+    if eig_method == "power":
+        eig_method = "lowrank"
     if eig_method not in ("eigh", "lowrank"):
         raise ValueError(f"unknown eig_method: {eig_method}")
     step = _depth_step_primary if method == "primary" else _depth_step_dual
@@ -437,6 +441,7 @@ def perspective_self_calibration(
 
     w = xh * z[..., None]  # (P, F, 3)
     wm = w.reshape(w.shape[0], -1).T
+    # "power" keeps the SVD factorization here, as in the JAX package
     if eig_method == "lowrank":
         m, v4, sigma4 = _rank4_subspace_gram(wm)
         s = sigma4[:, None] * v4.T

@@ -1,8 +1,11 @@
 """End-to-end reconstruction pipelines.
 
-Counterpart of ``mvrecon_tpu/models/pipelines.py``. Ported so far: the
-large-scale perspective pipeline, self-calibration followed by full-scale
-chunked BA, single device and without the camera bootstrap.
+Counterpart of ``mvrecon_tpu/models/pipelines.py``: the perspective
+pipeline (self-calibration, then dense BA) and its large-scale variant
+(self-calibration, an optional camera bootstrap on a point subsample, then
+chunked BA), on one device. Each stage's wall goes to an optional
+``StageTimer``. The affine pipeline and the sharded calibration
+(``mesh``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ from typing import NamedTuple
 import torch
 
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
+from ..ops.triangulation import triangulate
 from ..runtime.profiling import StageTimer
+from .bundle_adjustment import bundle_adjust
 from .bundle_adjustment_chunked import bundle_adjust_chunked
 from .perspective import perspective_self_calibration
 
@@ -28,6 +33,47 @@ class ReconstructionResult(NamedTuple):
     calib_X: torch.Tensor  # pre-BA points (the self-calibration output)
     status: int  # perspective calibration status (0 = ok)
     ba_log: dict | None = None
+
+
+def _stage(timer: StageTimer | None, name: str):
+    return timer.stage(name) if timer is not None else contextlib.nullcontext()
+
+
+def euclidean_reconstruction(
+    x,
+    f0: float = 1.0,
+    tol: float = 1e-2,
+    method: str = "dual",
+    config: LMConfig = LMConfig(scale_factor=2.0, delta_tol=1e-8, max_iter=100),
+    eig_method: str = "eigh",
+    visibility=None,
+    device=None,
+    timer: StageTimer | None = None,
+) -> ReconstructionResult:
+    """Perspective pipeline on observations x (F, P, 2): self-calibration
+    (projective depths and the metric upgrade) -> dense BA in the
+    x-up_z-forward gauge, from calibration's output.
+
+    visibility, an optional (P, F) mask, is honored by BA only: the
+    calibration keeps the full-visibility contract, so masked x entries
+    need finite placeholders. Runs on the card unless ``device`` says
+    otherwise; the working dtype is x's. ``timer`` records the wall of
+    each stage."""
+    dev = resolve_device(device)
+    x = as_tensor(x, dev, result_dtype(x))
+    with _stage(timer, "perspective_self_calibration"):
+        calib = perspective_self_calibration(
+            x, f0=f0, tol=tol, method=method, eig_method=eig_method, device=dev
+        )
+    with _stage(timer, "bundle_adjustment"):
+        ba = bundle_adjust(
+            x.transpose(0, 1), calib.X, calib.K, calib.R, calib.t, f0=f0,
+            visibility=visibility, axis="x-up_z-forward", config=config, device=dev,
+        )
+    return ReconstructionResult(
+        X=ba.X, K=ba.K, R=ba.R, t=ba.t, error=ba.error, n_iter=ba.n_iter,
+        calib_X=calib.X, status=calib.status, ba_log=ba.log,
+    )
 
 
 def euclidean_reconstruction_large(
@@ -48,30 +94,50 @@ def euclidean_reconstruction_large(
 ) -> ReconstructionResult:
     """Large-scale perspective pipeline on observations x (F, P, 2):
     self-calibration (Gram-subspace depth loop, chunked Khatri–Rao Grams)
-    -> chunked BA in the x-up_z-forward gauge, from calibration's output.
+    -> [camera bootstrap] -> chunked BA in the x-up_z-forward gauge.
+
+    ``bootstrap_iters > 0`` first converges the cameras on a strided
+    ``bootstrap_frac`` point subsample (chunked BA under the Nielsen
+    schedule) and DLT re-triangulates all points from those cameras, the
+    recovery path for weak starts. Give it enough iterations to converge:
+    an under-converged bootstrap makes the re-triangulated points far
+    worse than calibration's.
 
     Runs on the card unless ``device`` says otherwise; the working dtype
     is x's. ``timer`` records the wall of each stage. The sharded
-    calibration (``mesh``) and the camera bootstrap
-    (``bootstrap_iters > 0``) are not ported yet and raise."""
-    del bootstrap_frac  # used only by the bootstrap
+    calibration (``mesh``) is not ported yet and raises."""
     if mesh is not None:
         raise NotImplementedError("the sharded calibration is not ported yet")
-    if bootstrap_iters > 0:
-        raise NotImplementedError("the camera bootstrap is not ported yet")
     dev = resolve_device(device)
     x = as_tensor(x, dev, result_dtype(x))
 
-    def stage(name):
-        return timer.stage(name) if timer is not None else contextlib.nullcontext()
-
-    with stage("perspective_self_calibration"):
+    with _stage(timer, "perspective_self_calibration"):
         calib = perspective_self_calibration(
             x, f0=f0, tol=tol, method=method, eig_method="lowrank", device=dev
         )
-    with stage("bundle_adjustment"):
+    n_points = x.shape[1]
+    x_pf = x.transpose(0, 1)  # (P, F, 2)
+    X_init, K_init, R_init, t_init = calib.X, calib.K, calib.R, calib.t
+    if bootstrap_iters > 0:
+        with _stage(timer, "camera_bootstrap_ba"):
+            sub = max(int(n_points * bootstrap_frac), min(n_points, 200))
+            stride = max(n_points // sub, 1)
+            idx = torch.arange(0, stride * sub, stride, device=dev)
+            boot_cfg = LMConfig(
+                scale_factor=4.0, delta_tol=0.0, max_iter=bootstrap_iters,
+                accept_divisor=1.0, init_damping=3e-3, damping="nielsen",
+            )
+            boot = bundle_adjust_chunked(
+                x_pf[idx], calib.X[idx], calib.K, calib.R, calib.t, f0=f0,
+                axis="x-up_z-forward", config=boot_cfg, chunk_size=min(chunk_size, sub),
+                device=dev,
+            )
+        with _stage(timer, "retriangulate"):
+            X_init = triangulate(x, boot.K, boot.R, boot.t, f0=f0)
+        K_init, R_init, t_init = boot.K, boot.R, boot.t
+    with _stage(timer, "bundle_adjustment"):
         ba = bundle_adjust_chunked(
-            x.transpose(0, 1), calib.X, calib.K, calib.R, calib.t,
+            x_pf, X_init, K_init, R_init, t_init,
             f0=f0, axis="x-up_z-forward", config=config, chunk_size=chunk_size,
             device=dev,
         )

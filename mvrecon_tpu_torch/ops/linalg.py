@@ -1,15 +1,34 @@
 """Small-matrix linear algebra: closed-form 3x3 inverse, determinant and
-Cholesky, the lower-triangular inverse, the smallest eigenvector of a
-symmetric matrix, and the nearest-orthogonal (polar) factor.
+Cholesky, the lower-triangular inverse, the blocked 9x9 Cholesky and SPD
+inverse, the smallest eigenvector of a symmetric matrix, and the
+nearest-orthogonal (polar) factor.
 
 Counterpart of ``mvrecon_tpu/ops/linalg.py``. The JAX package's Jacobi
 eigensolver exists only because small batched ``eigh`` is slow on a TPU;
-here ``torch.linalg.eigh`` takes its place.
+here ``torch.linalg.eigh`` takes its place, through :func:`eigh`.
 """
 
 from __future__ import annotations
 
 import torch
+
+# Matrices per batched ``torch.linalg.eigh`` call. On the card, cuSOLVER's
+# batched eigensolver (torch 2.11, CUDA 12.8, H100) takes 24,576 4x4 or
+# 12x12 matrices and refuses 32,768 with CUSOLVER_STATUS_INVALID_VALUE from
+# its workspace query (scripts/eigh_batch_limit.py).
+EIGH_BATCH = 16384
+
+
+def eigh(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of (..., n, n) symmetric matrices (ascending
+    eigenvalues), in slices of at most ``EIGH_BATCH`` matrices."""
+    flat = a.reshape((-1,) + a.shape[-2:])
+    if flat.shape[0] <= EIGH_BATCH:
+        return torch.linalg.eigh(a)
+    parts = [torch.linalg.eigh(m) for m in flat.split(EIGH_BATCH)]
+    w = torch.cat([p[0] for p in parts]).reshape(a.shape[:-1])
+    v = torch.cat([p[1] for p in parts]).reshape(a.shape)
+    return w, v
 
 
 def inv3x3(m: torch.Tensor) -> torch.Tensor:
@@ -51,7 +70,7 @@ def det3x3(m: torch.Tensor) -> torch.Tensor:
 def min_eigvec_sym(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(eigenvalue, eigenvector) of the smallest eigenvalue of a symmetric
     matrix (``eigh`` sorts ascending)."""
-    w, v = torch.linalg.eigh(a)
+    w, v = eigh(a)
     return w[..., 0], v[..., :, 0]
 
 
@@ -71,7 +90,7 @@ def polar_orthogonal3(a: torch.Tensor) -> torch.Tensor:
     eps = torch.finfo(dt).eps
     tiny = torch.finfo(dt).tiny
     g = torch.einsum("...ji,...jk->...ik", a, a)
-    w, v = torch.linalg.eigh(g)  # ascending
+    w, v = eigh(g)  # ascending
     wc = w.clamp_min(tiny)
     inv_sqrt = torch.einsum("...ik,...k,...jk->...ij", v, 1.0 / torch.sqrt(wc), v)
     direct = a @ inv_sqrt
@@ -133,3 +152,49 @@ def inv_lower3(l: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def _block3(rows) -> torch.Tensor:
+    """(..., 9, 9) from a 3x3 nest of (..., 3, 3) blocks."""
+    return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=-2)
+
+
+def _abt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b^T over (..., 3, 3) batches."""
+    return a @ b.transpose(-1, -2)
+
+
+def chol9_blocks(g: torch.Tensor) -> torch.Tensor:
+    """Closed-form Cholesky factor L (lower) of (..., 9, 9) SPD matrices by
+    3x3-blocked elimination. The block products run in full precision (a
+    float32 product on the card must not drop to TF32): the Schur
+    subtractions D - L21 L21^T cancel almost completely for ill-conditioned
+    blocks, and a reduced-precision product there makes the remainder
+    indefinite, so sqrt(negative) gives NaN."""
+    A, B, C = g[..., 0:3, 0:3], g[..., 3:6, 0:3], g[..., 6:9, 0:3]
+    D, E, F = g[..., 3:6, 3:6], g[..., 6:9, 3:6], g[..., 6:9, 6:9]
+    l11 = chol3x3(A)
+    i11 = inv_lower3(l11)
+    l21 = _abt(B, i11)  # B L11^-T
+    l31 = _abt(C, i11)
+    l22 = chol3x3(D - _abt(l21, l21))
+    l32 = _abt(E - _abt(l31, l21), inv_lower3(l22))
+    l33 = chol3x3(F - _abt(l31, l31) - _abt(l32, l32))
+    z = torch.zeros_like(l11)
+    return _block3([[l11, z, z], [l21, l22, z], [l31, l32, l33]])
+
+
+def inv9_spd(g: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of (..., 9, 9) SPD matrices (the damped BA camera
+    blocks): blocked Cholesky, blocked triangular inverse, G^-1 = L^-T L^-1."""
+    l = chol9_blocks(g)
+    i11 = inv_lower3(l[..., 0:3, 0:3])
+    i22 = inv_lower3(l[..., 3:6, 3:6])
+    i33 = inv_lower3(l[..., 6:9, 6:9])
+    l21, l31, l32 = l[..., 3:6, 0:3], l[..., 6:9, 0:3], l[..., 6:9, 3:6]
+    m21 = -(i22 @ l21 @ i11)
+    m32 = -(i33 @ l32 @ i22)
+    m31 = -(i33 @ (l31 @ i11 + l32 @ m21))
+    z = torch.zeros_like(i11)
+    linv = _block3([[i11, z, z], [m21, i22, z], [m31, m32, i33]])
+    return linv.transpose(-1, -2) @ linv

@@ -12,7 +12,12 @@ reprojection error E after every BA iteration and the solver retries:
 - ``same_start``: BA alone from one calibration (the CPU's, float32), on
   the card and on the CPU, which takes the calibration out of the gap;
 - ``calibration``: the calibration on the card and the CPU, float32, held
-  against each other on sign-invariant quantities.
+  against each other on sign-invariant quantities;
+- ``dense``: the dense ``bundle_adjust`` from the starts of ``chip_smoke.py``
+  phase 5 (point side: 12 views x 400 points; camera side: 100 views x
+  200 points, 3P < 9F), reference damping, on the card and on the CPU in
+  float32, on the CPU with the points in reverse order (the same algebra
+  summed in another order) and in float64.
 
 The spread between the CPU's own float32 runs is the yardstick for the gap
 between the card and the CPU.
@@ -90,6 +95,24 @@ def main() -> int:
                                     config=config, chunk_size=128,
                                     device=dev)
         record("same_start", f"{dev} float32 chunk 128", res)
+
+    from chip_smoke import perturbed_start
+    from mvrecon_tpu_torch.models.bundle_adjustment import bundle_adjust
+
+    dense_cfg = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=args.iters, record_log=True)
+    for side, (nf, n_slices) in {"point": (12, 20), "camera": (100, 10)}.items():
+        sc = make_synthetic_scene(torch.Generator().manual_seed(6), n_images=nf,
+                                  n_slices=n_slices, n_angles=20, dtype=torch.float32)
+        x, X0, K, R, t0 = perturbed_start(sc, seed=6)
+        starts = {f"{args.device} float32": (args.device, (x, X0, K, R, t0)),
+                  "cpu float32": ("cpu", (x, X0, K, R, t0)),
+                  "cpu float32 points reversed": ("cpu", (x[::-1].copy(), X0[::-1].copy(),
+                                                          K, R, t0)),
+                  "cpu float64": ("cpu", tuple(a.astype("float64") for a in (x, X0, K, R, t0)))}
+        for name, (dev, start) in starts.items():
+            res = bundle_adjust(*start, axis="x-up_z-forward", config=dense_cfg, device=dev)
+            print(json.dumps({"kind": "dense", "side": side, "run": name, "n_iter": res.n_iter,
+                              "E_log": res.log["reprojection_error"].tolist()}), flush=True)
     return 0
 
 

@@ -37,6 +37,11 @@ def _lower3(n):
     return np.linalg.cholesky(_spd3(n))
 
 
+def _spd9(n):
+    a = _rng().normal(size=(n, 9, 9))
+    return a @ a.transpose(0, 2, 1) + 0.5 * np.eye(9)
+
+
 def _near_rot(n):
     q, _ = np.linalg.qr(_rng().normal(size=(n, 3, 3)))
     q = q * np.sign(np.linalg.det(q))[:, None, None]
@@ -64,6 +69,8 @@ CASES = [
     ("det3x3", jlin.det3x3, tlin.det3x3, lambda: (_rng().normal(size=(10, 3, 3)),)),
     ("chol3x3", jlin.chol3x3, tlin.chol3x3, lambda: (_spd3(10),)),
     ("inv_lower3", jlin.inv_lower3, tlin.inv_lower3, lambda: (_lower3(10),)),
+    ("chol9_blocks", jlin.chol9_blocks, tlin.chol9_blocks, lambda: (_spd9(10),)),
+    ("inv9_spd", jlin.inv9_spd, tlin.inv9_spd, lambda: (_spd9(10),)),
     ("polar_orthogonal3", jlin.polar_orthogonal3, tlin.polar_orthogonal3,
      lambda: (_near_rot(10),)),
     ("fourth_moment_matrix", jmom.fourth_moment_matrix, tmom.fourth_moment_matrix,
@@ -113,6 +120,19 @@ def test_min_eigvec_sym_matches_jax():
     pj = np.einsum("bi,bj->bij", np.asarray(v_j), np.asarray(v_j))
     pt = np.einsum("bi,bj->bij", v_t.numpy(), v_t.numpy())
     np.testing.assert_allclose(pt, pj, atol=1e-10)
+
+
+def test_eigh_in_slices_equals_one_call(monkeypatch):
+    """``eigh`` runs a large batch in slices of ``EIGH_BATCH`` matrices (the
+    card's batched eigensolver refuses large batches); the result is the
+    one call's, leading batch dimensions included."""
+    a = _rng().normal(size=(3, 50, 4, 4))
+    a = torch.from_numpy(a + a.transpose(0, 1, 3, 2))
+    want = torch.linalg.eigh(a)
+    monkeypatch.setattr(tlin, "EIGH_BATCH", 7)
+    got = tlin.eigh(a)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
 
 
 def test_polar_orthogonal3_rank_deficient_is_orthogonal():

@@ -44,9 +44,11 @@ def _compare(x, **kw):
 
 
 # tolerances between the first and the converged depth error of this
-# scene, so each case runs several depth iterations and ends with status 0
+# scene, so each case runs several depth iterations and ends with status 0;
+# "power" is the older name of "lowrank" in the depth loop, while the
+# factorization after it stays the SVD
 @pytest.mark.parametrize("method,tol", [("primary", 0.0094), ("dual", 0.0064)])
-@pytest.mark.parametrize("eig_method", ["eigh", "lowrank"])
+@pytest.mark.parametrize("eig_method", ["eigh", "lowrank", "power"])
 def test_self_calibration_matches_jax(method, tol, eig_method):
     got, _ = _compare(_observations(10, 10), tol=tol, method=method, eig_method=eig_method)
     assert got.status == tpersp.STATUS_OK

@@ -23,6 +23,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "scripts" / "profile_torch_ba.py",
     REPO / "scripts" / "profile_torch_streamed.py",
     REPO / "scripts" / "gpu_cpu_trajectory.py",
+    REPO / "scripts" / "eigh_batch_limit.py",
 ]
 
 
@@ -44,19 +45,27 @@ def test_no_jax_or_jax_package_import(path):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
+    from mvrecon_tpu_torch.models.bundle_adjustment import bundle_adjust
     from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
     from mvrecon_tpu_torch.models.perspective import perspective_self_calibration
-    from mvrecon_tpu_torch.models.pipelines import euclidean_reconstruction_large
+    from mvrecon_tpu_torch.models.pipelines import (
+        euclidean_reconstruction,
+        euclidean_reconstruction_large,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((4, 20, 2))
+    start = (np.zeros((20, 3)), np.zeros((4, 3, 3)), np.zeros((4, 3, 3)), np.zeros((4, 3)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         euclidean_reconstruction_large(x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        euclidean_reconstruction(x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         perspective_self_calibration(x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        bundle_adjust_chunked(x.transpose(1, 0, 2), np.zeros((20, 3)), np.zeros((4, 3, 3)),
-                              np.zeros((4, 3, 3)), np.zeros((4, 3)))
+        bundle_adjust_chunked(x.transpose(1, 0, 2), *start)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle_adjust(x.transpose(1, 0, 2), *start)
 
 
 def _function(tree, name):
@@ -104,3 +113,16 @@ def test_cli_runs_on_cpu(capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["points"] == 100 and rec["views"] == 6 and rec["device"] == "cpu"
     assert rec["calib_status"] == 0 and np.isfinite(rec["reprojection_error"])
+
+
+def test_euclidean_cli_runs_on_cpu(capsys):
+    from mvrecon_tpu_torch.__main__ import main
+
+    assert main(["euclidean", "--n-points", "200", "--n-images", "8", "--eig-method", "power",
+                 "--device", "cpu", "--float64"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["command"] == "euclidean" and rec["eig_method"] == "power"
+    assert rec["points"] == 200 and rec["views"] == 8 and rec["device"] == "cpu"
+    assert rec["dtype"] == "float64" and rec["calib_status"] == 0 and rec["ba_n_iter"] > 0
+    assert set(rec["stage_walls_s"]) == {"perspective_self_calibration", "bundle_adjustment"}
+    assert rec["E_vs_noise_floor"] < 1.5

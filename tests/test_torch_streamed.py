@@ -2,7 +2,7 @@
 package on the CPU, on the same numpy inputs:
 
 - the per-chunk blocks (``_camera_param_derivs``, ``_chunk_factors``,
-  ``_chunk_blocks``) and one chunk through ``_accumulate_chunk`` ->
+  ``_chunk_blocks``, which the port keeps in its dense module) and one chunk through ``_accumulate_chunk`` ->
   ``_assemble_and_solve`` -> ``_backsub_chunk``, in float64 to 1e-10;
 - ``bundle_adjust_streamed`` against JAX's in float64 (aligned and ragged
   chunks, with and without a mask; the segmented resume; the prefetch
@@ -25,7 +25,6 @@ from mvrecon_tpu.models import bundle_adjustment_chunked as jbc
 from mvrecon_tpu.models import bundle_adjustment_streamed as jbs
 from mvrecon_tpu_torch.interop import ba_state_from_numpy, lm_config_from_fields, results_to_numpy
 from mvrecon_tpu_torch.models import bundle_adjustment as tba
-from mvrecon_tpu_torch.models import bundle_adjustment_chunked as tbc
 from mvrecon_tpu_torch.models import bundle_adjustment_streamed as tbs
 
 AXIS = "x-up_z-forward"
@@ -100,11 +99,11 @@ def test_camera_param_derivs_match_jax():
 def test_chunk_factors_and_blocks_match_jax(visibility):
     jcam, tcam, pb = _chunk(visibility)
     want = jbc._chunk_factors(jcam, *_j(pb, "X", "x", "vis"), 1.0)
-    got = tbc._chunk_factors(tcam, *_t(pb, "X", "x", "vis"), 1.0)
+    got = tba._chunk_factors(tcam, *_t(pb, "X", "x", "vis"), 1.0)
     for g, w in zip(got, want):
         _close(g, w)
     want = jbc._chunk_blocks(jcam, *_j(pb, "X", "x", "vis", "free"), 1.0)
-    got = tbc._chunk_blocks(tcam, *_t(pb, "X", "x", "vis", "free"), 1.0)
+    got = tba._chunk_blocks(tcam, *_t(pb, "X", "x", "vis", "free"), 1.0)
     for g, w in zip(got, want):
         _close(g, w)
 
