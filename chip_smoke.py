@@ -30,16 +30,33 @@ Phases, each of which stops the script with a non-zero exit on failure:
    bootstrap (12 iterations on a 10 % subsample, DLT re-triangulation),
    whose K2 launches are the final BA's retries x chunks plus a positive
    multiple of the subsample's chunks;
+4f. ``batched_euclidean_reconstruction`` on 256 scenes x 100 views x 200
+   points (``bench.py::bench_batched``'s configuration: dual, lowrank,
+   blocks of 64 scenes, 15 Nielsen iterations), one warm-up and one timed
+   run; every scene status 0 and finite, worst E / floor < 1.5;
+4g. the same scenes to convergence (``delta_tol=1e-3``): through the lanes
+   with a budget of 40, then by scene compaction
+   (``batched_euclidean_to_convergence``), with what the finished lanes
+   cost;
+4h. ``batched_affine_reconstruction`` on 256 scenes x 12 views x 200
+   points (paraperspective; every scene finite and below its start E, the
+   median at the floor, at most 10 % of the scenes above 1.5x it, as the
+   reference algorithm leaves about 4 %), then ``affine_reconstruction``
+   at 10k points x 100 views for each affine model;
+   phases 4c-4h launch neither kernel;
 5. the pipelines and the BA cores on small scenes on the card and on the
-   CPU (plain versions), which must agree, and the streamed core on the
-   card with prefetch 0 and 2, which must agree bit for bit;
+   CPU (plain versions), which must agree, the streamed core on the card
+   with prefetch 0 and 2, which must agree bit for bit, both batched
+   pipelines on three small scenes on each side, and a batch whose
+   second scene is all NaN, which must end flagged while the others reach
+   the floor;
 6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--points``/``--ba-iters`` shrink phases 4 and 4e, ``--streamed-points``
-phase 4b and ``--dense-points`` phases 4c and 4d for a quick run; the
-views and the chunks stay the main paths', so the kernel checks keep
-their shapes.
+phase 4b, ``--dense-points`` phases 4c and 4d and ``--batched-scenes``
+phases 4f-4h for a quick run; the views and the chunks stay the main
+paths', so the kernel checks keep their shapes.
 """
 
 from __future__ import annotations
@@ -67,6 +84,10 @@ STREAMED_CHUNK = 16384  # the streamed core's default chunk: K1's Y is (49152, 4
 DENSE_VIEWS = 100  # dense headline (bench.py::bench_headline): 10k points x 100 views
 BOOTSTRAP_FRAC = 0.1  # camera bootstrap of phase 4e: a 10 % subsample ...
 BOOTSTRAP_ITERS = 12  # ... converged for 12 iterations
+BATCH_VIEWS = 100  # bench.py::bench_batched: 256 scenes x 100 views x 200 points
+BATCH_SLICES = 10  # the curved tube's 10 slices x 20 angles
+BATCH_CHUNK = 64  # scenes per block
+AFFINE_VIEWS = 12  # the reference affine demo's views per scene
 # Phase 5 limits, from scripts/gpu_cpu_trajectory.py on an H100. From one
 # calibration, E after BA iterations 1 and 2 agreed to 7e-7 and 3.1e-6.
 # After 8 iterations the whole pipeline's E differed by 1.4e-3: the f32
@@ -277,12 +298,245 @@ def dense_layers(torch, tba, start, config, reps: int) -> dict:
     return rec
 
 
+def batched_scenes(torch, make_synthetic_scene, n_scenes: int, n_images: int, seed: int):
+    """Observations (S, F, 200, 2) of S synthetic scenes drawn in turn
+    from one seeded generator on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.stack([make_synthetic_scene(gen, n_images=n_images, n_slices=BATCH_SLICES,
+                                             n_angles=20, dtype=torch.float32).x
+                        for _ in range(n_scenes)])
+
+
+def batched_run(torch, fs, sy, run, floor: float):
+    """One timed run of a batched pipeline (``run(timer)``), with the
+    per-scene outcome summarized: (record, result)."""
+    from mvrecon_tpu_torch.runtime.profiling import StageTimer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(fs, sy)
+    timer = StageTimer()
+    start = time.perf_counter()
+    res = run(timer)
+    err = res.error.cpu()
+    wall = time.perf_counter() - start
+    ratio = (err / floor).tolist()
+    finite = [r for r in ratio if math.isfinite(r)]
+    rec = {
+        "wall_s": wall, "scenes_per_s": err.shape[0] / wall, "stage_walls_s": timer.times,
+        "calib_ok": int((res.status.cpu() == 0).sum()), "finite": len(finite),
+        "scenes_total": err.shape[0], "max_n_iter": int(res.n_iter.max()),
+        "ba_solver_retries": res.ba_log["n_solver_retries"],
+        "worst_E_vs_noise_floor": max(ratio) if len(finite) == len(ratio) else float("nan"),
+        "median_E_vs_noise_floor": statistics.median(finite) if finite else float("nan"),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launch_counts(fs, sy),
+    }
+    return rec, res
+
+
+def check_batched(rec: dict, name: str) -> None:
+    n = rec["scenes_total"]
+    check(rec["calib_ok"] == n, f"{name}: {rec['calib_ok']} of {n} scenes have status 0")
+    check(rec["finite"] == n, f"{name}: {rec['finite']} of {n} scenes are finite")
+    check(rec["worst_E_vs_noise_floor"] < 1.5,
+          f"{name}: worst E / noise floor {rec['worst_E_vs_noise_floor']:.4f}")
+    check(rec["launches"] == (0, 0), f"{name} launched the SYRK kernels {rec['launches']}")
+
+
+def batched_phases(torch, fs, sy, n_scenes: int, dense_points: int) -> None:
+    """Phases 4f-4h: the batched perspective pipeline at 256 scenes x 100
+    views, the same scenes to convergence, and the affine pipeline."""
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.models.pipelines import affine_reconstruction
+    from mvrecon_tpu_torch.parallel.batched import (
+        batched_affine_reconstruction,
+        batched_euclidean_reconstruction,
+        batched_euclidean_to_convergence,
+    )
+    from mvrecon_tpu_torch.runtime.profiling import StageTimer
+
+    # 4f. scene batching: 256 scenes x 100 views x 200 points
+    x_b = batched_scenes(torch, make_synthetic_scene, n_scenes, BATCH_VIEWS, seed=11)
+    b_floor = x_b.shape[2] * BATCH_VIEWS * 2 * NOISE**2
+    b_cfg = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=15, accept_divisor=1.0,
+                     init_damping=3e-3, damping="nielsen")
+    b_kw = dict(method="dual", eig_method="lowrank", scene_chunk=BATCH_CHUNK)
+    batched_euclidean_reconstruction(x_b, config=b_cfg, **b_kw)  # warm-up
+    rec_f, res_f = batched_run(torch, fs, sy, lambda timer: batched_euclidean_reconstruction(
+        x_b, config=b_cfg, timer=timer, **b_kw), b_floor)
+    rec_f.update(scenes=n_scenes, views=BATCH_VIEWS, points=x_b.shape[2], chunk=BATCH_CHUNK,
+                 ba_iters=b_cfg.max_iter,
+                 host_reads_ba=res_f.ba_log["n_solver_retries"])
+    print("batched " + json.dumps(rec_f), flush=True)
+    check_batched(rec_f, "batched")
+    del res_f
+
+    # 4g. the same scenes to convergence: lanes with a budget of 40, then
+    # scene compaction from a budget of 15
+    c_cfg = dataclasses.replace(b_cfg, delta_tol=1e-3, max_iter=40)
+    rec_g, res_g = batched_run(torch, fs, sy, lambda timer: batched_euclidean_reconstruction(
+        x_b, config=c_cfg, timer=timer, **b_kw), b_floor)
+    n_it = res_g.n_iter.cpu()
+    # every lane of a block pays for the block's slowest lane
+    paid = sum(n_it[i:i + BATCH_CHUNK].numel() * int(n_it[i:i + BATCH_CHUNK].max())
+               for i in range(0, n_scenes, BATCH_CHUNK))
+    rec_g.update(ba_iters=c_cfg.max_iter, delta_tol=c_cfg.delta_tol,
+                 converged_early=int((n_it < c_cfg.max_iter).sum()),
+                 lane_iterations_used=int(n_it.sum()), lane_iterations_paid=paid,
+                 finished_lane_share=1.0 - int(n_it.sum()) / paid)
+    del res_g
+    rec_t, res_t = batched_run(torch, fs, sy, lambda timer: batched_euclidean_to_convergence(
+        x_b, config=dataclasses.replace(b_cfg, delta_tol=1e-3), timer=timer, **b_kw), b_floor)
+    rec_t["phases"] = res_t.ba_log["phases"]
+    rec_g["to_convergence"] = rec_t
+    print("batched_converged " + json.dumps(rec_g), flush=True)
+    check_batched(rec_g, "batched_converged (lanes)")
+    check_batched(rec_t, "batched_converged (compaction)")
+    del res_t, x_b
+
+    # 4h. the affine pipeline: batched at the reference demo's shape, then
+    # one scene at 10k points x 100 views for each model
+    x_a = batched_scenes(torch, make_synthetic_scene, n_scenes, AFFINE_VIEWS, seed=12)
+    a_floor = x_a.shape[2] * AFFINE_VIEWS * 2 * NOISE**2
+    a_cfg = LMConfig(scale_factor=2.0, delta_tol=1e-8, max_iter=50)
+    f_a = torch.ones(x_a.shape[:2], device="cuda")
+    a_log = dataclasses.replace(a_cfg, record_log=True)
+    batched_affine_reconstruction(x_a, f_a, config=a_log)  # warm-up
+    rec_h, res_h = batched_run(torch, fs, sy, lambda timer: batched_affine_reconstruction(
+        x_a, f_a, config=a_log, timer=timer), a_floor)
+    ratio = res_h.error.cpu() / a_floor
+    rec_h.update(scenes=n_scenes, views=AFFINE_VIEWS, points=x_a.shape[2],
+                 model="paraperspective", ba_iters=a_cfg.max_iter,
+                 below_start=int((res_h.error < res_h.ba_log["reprojection_error"][:, 0])
+                                 .sum()),
+                 above_1_5x_floor=int((ratio > 1.5).sum()),
+                 worst_scenes_E_vs_noise_floor=ratio.sort().values[-5:].tolist())
+    del res_h, x_a
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    big = make_synthetic_scene(gen, n_images=DENSE_VIEWS, n_slices=dense_points // 20,
+                               n_angles=20, dtype=torch.float32)
+    big_floor = big.X.shape[0] * DENSE_VIEWS * 2 * NOISE**2
+    f_big = torch.ones(DENSE_VIEWS, device="cuda")
+    singles = {}
+    for model in ("orthographic", "symmetric", "paraperspective"):
+        reset_launch_counts(fs, sy)
+        a_timer = StageTimer()
+        start = time.perf_counter()
+        r = affine_reconstruction(big.x, f_big, model=model,
+                                  config=dataclasses.replace(a_cfg, record_log=True),
+                                  timer=a_timer)
+        e_end = float(r.error)
+        wall = time.perf_counter() - start
+        e_start = float(r.ba_log["reprojection_error"][0])
+        singles[model] = {
+            "points": big.X.shape[0], "views": DENSE_VIEWS, "wall_s": wall,
+            "stage_walls_s": a_timer.times, "ba_n_iter": r.n_iter,
+            "ba_solver_retries": r.ba_log["n_solver_retries"], "start_E": e_start,
+            "reprojection_error": e_end, "E_vs_noise_floor": e_end / big_floor,
+            "launches": launch_counts(fs, sy),
+        }
+    rec_h["single"] = singles
+    print("affine " + json.dumps(rec_h), flush=True)
+    check_affine(rec_h)
+    for model, rec in singles.items():
+        check(math.isfinite(rec["reprojection_error"]), f"affine {model} E is not finite")
+        check(rec["reprojection_error"] < rec["start_E"],
+              f"affine {model} E {rec['reprojection_error']:.6g} is not below its start "
+              f"{rec['start_E']:.6g}")
+        check(rec["launches"] == (0, 0), f"affine {model} launched the SYRK kernels")
+    del big
+
+
+def batched_gpu_vs_cpu(torch, fs, sy, d_cfg) -> None:
+    """Phase 5, batched: both batched pipelines on three small scenes on
+    the card and on the CPU, and the fault isolation of a batch whose
+    second scene is all NaN."""
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.parallel.batched import (
+        batched_affine_reconstruction,
+        batched_euclidean_reconstruction,
+    )
+
+    reset_launch_counts(fs, sy)
+    x_s = batched_scenes(torch, make_synthetic_scene, 3, 6, seed=14)
+    s_floor = x_s.shape[2] * 6 * 2 * NOISE**2
+    f_s = torch.ones(x_s.shape[:2], device="cuda")
+    aff_cfg = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=10)
+    pairs = {
+        "euclidean": [batched_euclidean_reconstruction(x_s, method="dual", eig_method="lowrank",
+                                                       config=d_cfg, device=dev)
+                      for dev in ("cuda", "cpu")],
+        "affine": [batched_affine_reconstruction(x_s, f_s, config=aff_cfg, device=dev)
+                   for dev in ("cuda", "cpu")],
+    }
+    batched_small = {}
+    for name, (r_g, r_c) in pairs.items():
+        e_g, e_c = r_g.error.cpu(), r_c.error.cpu()
+        batched_small[name] = {
+            "status_gpu": r_g.status.tolist(), "status_cpu": r_c.status.tolist(),
+            "n_iter_gpu": r_g.n_iter.tolist(), "n_iter_cpu": r_c.n_iter.tolist(),
+            "E_gpu": e_g.tolist(), "E_cpu": e_c.tolist(),
+            "E_rel_diff": ((e_g - e_c).abs() / e_c).tolist(), "E_rtol": FINAL_E_RTOL,
+        }
+    x_nan = x_s.clone()
+    x_nan[1] = float("nan")
+    r_nan = batched_euclidean_reconstruction(x_nan, method="dual", eig_method="lowrank",
+                                             config=d_cfg)
+    e_nan = r_nan.error.cpu()
+    batched_small["fault_isolation"] = {
+        "status": r_nan.status.tolist(), "E": e_nan.tolist(),
+        "E_vs_noise_floor": (e_nan / s_floor).tolist(), "limit": 5.0,
+    }
+    batched_small["launches_gpu"] = launch_counts(fs, sy)
+    print("batched_gpu_vs_cpu " + json.dumps(batched_small), flush=True)
+    for name in ("euclidean", "affine"):
+        rec = batched_small[name]
+        check(rec["status_gpu"] == rec["status_cpu"] == [0, 0, 0],
+              f"small batched {name} statuses {rec['status_gpu']} {rec['status_cpu']}")
+        check(rec["n_iter_gpu"] == rec["n_iter_cpu"], f"small batched {name} iterations differ")
+        check(max(rec["E_rel_diff"]) < FINAL_E_RTOL,
+              f"small batched {name} E differs by {rec['E_rel_diff']} (limit {FINAL_E_RTOL})")
+    rec = batched_small["fault_isolation"]
+    check(rec["status"][1] == 2 and not math.isfinite(rec["E"][1]),
+          f"the NaN scene is not flagged: status {rec['status'][1]}, E {rec['E'][1]}")
+    check(all(rec["E_vs_noise_floor"][i] < 5.0 for i in (0, 2)),
+          f"the finite scenes beside the NaN one: E / floor {rec['E_vs_noise_floor']}")
+    check(batched_small["launches_gpu"] == (0, 0), "the small batched runs launched a kernel")
+
+
+# Share of random scenes on which the affine pipeline (the JAX package's
+# and the port's alike) ends above 1.5x the noise floor after 50 BA
+# iterations: 5 of 128 in float64 on the CPU (scripts/affine_branch_survey.py).
+# The check allows up to 10 %.
+AFFINE_ABOVE_FLOOR_SHARE = 0.10
+
+
+def check_affine(rec: dict) -> None:
+    """Phase 4h: every scene finite, calibrated and improved by BA, the
+    median at the floor, and no more scenes off the floor than the
+    reference algorithm leaves there."""
+    n = rec["scenes_total"]
+    check(rec["calib_ok"] == n, f"batched affine: {rec['calib_ok']} of {n} scenes have status 0")
+    check(rec["finite"] == n, f"batched affine: {rec['finite']} of {n} scenes are finite")
+    check(rec["below_start"] == n,
+          f"batched affine: {rec['below_start']} of {n} scenes end below their start E")
+    check(rec["median_E_vs_noise_floor"] < 1.5,
+          f"batched affine: median E / noise floor {rec['median_E_vs_noise_floor']:.4f}")
+    check(rec["above_1_5x_floor"] <= AFFINE_ABOVE_FLOOR_SHARE * n,
+          f"batched affine: {rec['above_1_5x_floor']} of {n} scenes above 1.5x the floor")
+    check(rec["launches"] == (0, 0), f"batched affine launched the SYRK kernels {rec['launches']}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--points", type=int, default=100_000)
     parser.add_argument("--ba-iters", type=int, default=8)
     parser.add_argument("--streamed-points", type=int, default=1_000_000)
     parser.add_argument("--dense-points", type=int, default=10_000)
+    parser.add_argument("--batched-scenes", type=int, default=256)
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
 
@@ -538,6 +792,8 @@ def main() -> int:
           f"syrk_acc launches {b_launches} != final retries {b_retries} x chunks {n_chunks} "
           f"+ a positive multiple of the bootstrap's {boot_chunks} chunks")
 
+    batched_phases(torch, fs, sy, args.batched_scenes, args.dense_points)
+
     # 5. the card against the CPU (plain versions) on a small scene: the
     # whole pipeline on each, then BA on each from one calibration
     small = make_synthetic_scene(torch.Generator().manual_seed(1), n_images=12,
@@ -646,6 +902,8 @@ def main() -> int:
     check(rec["E_rel_diff"] < FINAL_E_RTOL,
           f"small dense pipeline E differs by {rec['E_rel_diff']:.3e} (limit {FINAL_E_RTOL})")
     check(dense_small["launches_gpu"] == (0, 0), "the small dense runs launched a SYRK kernel")
+
+    batched_gpu_vs_cpu(torch, fs, sy, d_cfg)
 
     # 6. result lines
     kernels = [{

@@ -11,9 +11,11 @@ the JAX package's.
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on CPU tensors each kernel wrapper runs its plain PyTorch version.
 
-Ported so far: the large perspective pipeline
-(``models.pipelines.euclidean_reconstruction_large``): self-calibration
-and the fused chunked BA core with the accumulating SYRK kernel.
+Ported so far: every entry point of ``models/pipelines.py`` on one
+device (the affine pipeline, the dense perspective pipeline and the large
+one with the fused chunked BA core and its accumulating SYRK kernel),
+scene batching (``parallel/batched.py``), and the host-streamed BA with
+the packed SYRK kernel.
 """
 
 __version__ = "0.1.0"

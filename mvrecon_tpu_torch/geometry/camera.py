@@ -44,3 +44,12 @@ def project_points(X: torch.Tensor, K: torch.Tensor, R: torch.Tensor, t: torch.T
     P = camera_matrix(K, R, t)  # (F, 3, 4)
     proj = torch.einsum("fij,pj->fpi", P[..., :3], X) + P[:, None, :, 3]
     return proj[..., :2] / proj[..., 2:3]
+
+
+def project_points_orthographic(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Orthographic projection of points X (..., P, 3) through cameras
+    (..., F, ...): the camera-frame x, y without a divide -> (..., F, P, 2)."""
+    rt = R.transpose(-1, -2)
+    xc = (torch.einsum("...fij,...pj->...fpi", rt, X)
+          - torch.einsum("...fij,...fj->...fi", rt, t)[..., None, :])
+    return xc[..., :2]

@@ -9,12 +9,18 @@ either side, and the dense LM core (``lm_step``, ``lm_optimize``,
 ``bundle_adjust``). The chunked and streamed cores build on the pieces
 here.
 
-The JAX loops are ``lax.while_loop``s inside one ``jit``; here they are
-Python loops that read the accept flag from the card once per retry. A
-damped system that is not positive definite gives a NaN step, which
-rejects the trial and raises the damping, as ``cho_factor``'s NaNs do
-there. Every sum over points is a contraction inside one ``einsum`` or
-matrix product, so no (P, F, 9, 9) block is ever formed.
+Every function takes leading scene dimensions ``...``: one problem is the
+case with none, and S problems of one shape run as lanes
+(``parallel/batched.py``), which is what ``vmap`` makes of the JAX
+functions. The JAX loops are ``lax.while_loop``s inside one ``jit``; here
+they are Python loops that read from the card once per retry whether any
+lane is still retrying and whether any will iterate again. A lane that has
+accepted its trial, or finished, keeps its state, damping and count by
+``torch.where`` while the others go on. A damped system that is not
+positive definite gives a NaN step, which rejects the trial and raises the
+damping, as ``cho_factor``'s NaNs do there. Every sum over points is a
+contraction inside one ``einsum`` or matrix product, so no (P, F, 9, 9)
+block is ever formed.
 
 Robust losses, distortion models, the sharded (``axis_name``) variant and
 the ``solver`` hook are not ported yet and raise ``NotImplementedError``.
@@ -27,27 +33,29 @@ from typing import NamedTuple
 import torch
 
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
+from ..ops.lanes import keep, keep_all, lane_view
 from ..ops.linalg import inv3x3, inv9_spd
 from ..ops.rotations import rodrigues
 
 
 class BAState(NamedTuple):
-    """Optimizable parameters (normalized gauge frame)."""
+    """Optimizable parameters (normalized gauge frame), with optional
+    leading lane dimensions."""
 
-    X: torch.Tensor  # (P, 3)
-    f: torch.Tensor  # (F,)
-    u: torch.Tensor  # (F, 2)
-    t: torch.Tensor  # (F, 3)
-    R: torch.Tensor  # (F, 3, 3)
+    X: torch.Tensor  # (..., P, 3)
+    f: torch.Tensor  # (..., F)
+    u: torch.Tensor  # (..., F, 2)
+    t: torch.Tensor  # (..., F, 3)
+    R: torch.Tensor  # (..., F, 3, 3)
 
 
 class BAResult(NamedTuple):
-    X: torch.Tensor  # (P, 3) in the original (global) frame
-    K: torch.Tensor  # (F, 3, 3)
-    R: torch.Tensor  # (F, 3, 3)
-    t: torch.Tensor  # (F, 3)
-    error: torch.Tensor  # final reprojection error E (sum of squares)
-    n_iter: int
+    X: torch.Tensor  # (..., P, 3) in the original (global) frame
+    K: torch.Tensor  # (..., F, 3, 3)
+    R: torch.Tensor  # (..., F, 3, 3)
+    t: torch.Tensor  # (..., F, 3)
+    error: torch.Tensor  # (...,) final reprojection error E (sum of squares)
+    n_iter: int | torch.Tensor  # an int for one problem, (...,) for lanes
     log: dict | None
     distortion: torch.Tensor | None = None
 
@@ -77,33 +85,35 @@ def normalize_gauge(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor, axis: str
     docs/PARITY.md #5), so restore(normalize(state)) is the identity.
     Returns the normalized (X, R, t) and the restore info."""
     ax = _axis_index(axis)
-    c0c1_len = torch.abs(torch.dot(R[0, :, ax], t[1] - t[0]))
-    X_ = X - t[0]
-    t_ = t - t[0]
-    s = torch.abs(torch.dot(R[0, :, ax], t_[1]))
-    X_ = (X_ @ R[0]) / s
-    R_ = torch.einsum("ji,fjk->fik", R[0], R)
-    t_ = (t_ @ R[0]) / s
-    return X_, R_, t_, {"R0": R[0], "t0": t[0], "scale": c0c1_len}
+    r0, t0 = R[..., 0, :, :], t[..., 0, :]
+    c0c1_len = torch.abs(torch.sum(r0[..., :, ax] * (t[..., 1, :] - t0), dim=-1))
+    X_ = X - t0[..., None, :]
+    t_ = t - t0[..., None, :]
+    s = torch.abs(torch.sum(r0[..., :, ax] * t_[..., 1, :], dim=-1))[..., None, None]
+    X_ = (X_ @ r0) / s
+    R_ = torch.einsum("...ji,...fjk->...fik", r0, R)
+    t_ = (t_ @ r0) / s
+    return X_, R_, t_, {"R0": r0, "t0": t0, "scale": c0c1_len}
 
 
 def restore_gauge(info: dict, X: torch.Tensor, R: torch.Tensor, t: torch.Tensor):
     """Invert ``normalize_gauge``."""
-    r0, t0, scale = info["R0"], info["t0"], info["scale"]
+    r0, t0, scale = info["R0"], info["t0"][..., None, :], info["scale"][..., None, None]
+    r0t = r0.transpose(-1, -2)
     return (
-        (scale * X) @ r0.T + t0,
-        torch.einsum("ij,fjk->fik", r0, R),
-        (scale * t) @ r0.T + t0,
+        (scale * X) @ r0t + t0,
+        torch.einsum("...ij,...fjk->...fik", r0, R),
+        (scale * t) @ r0t + t0,
     )
 
 
 def build_K(f: torch.Tensor, u: torch.Tensor, f0: float) -> torch.Tensor:
-    """(F, 3, 3) intrinsics from f, (u0, v0), f0."""
-    k = torch.zeros((f.shape[0], 3, 3), dtype=f.dtype, device=f.device)
-    k[:, 0, 0] = f
-    k[:, 1, 1] = f
-    k[:, :2, 2] = u
-    k[:, 2, 2] = f0
+    """(..., F, 3, 3) intrinsics from f, (u0, v0), f0."""
+    k = torch.zeros(f.shape + (3, 3), dtype=f.dtype, device=f.device)
+    k[..., 0, 0] = f
+    k[..., 1, 1] = f
+    k[..., :2, 2] = u
+    k[..., 2, 2] = f0
     return k
 
 
@@ -111,55 +121,55 @@ def intrinsics_from_K(K: torch.Tensor, f0: float):
     """(f, u) of ``K = [[f, 0, u0], [0, f, v0], [0, 0, f0]]`` from a
     projective-scale K: rescale to ``K[2, 2] == f0`` first (self-
     calibration returns K only up to a per-camera scale)."""
-    s = f0 / K[:, 2, 2]
-    return K[:, 0, 0] * s, K[:, :2, 2] * s[:, None]
+    s = f0 / K[..., 2, 2]
+    return K[..., 0, 0] * s, K[..., :2, 2] * s[..., None]
 
 
 def calc_pqr(X: torch.Tensor, K: torch.Tensor, R: torch.Tensor, t: torch.Tensor):
-    """Camera matrices P (F, 3, 4) and homogeneous image coordinates
-    (p, q, r), each (P, F)."""
+    """Camera matrices P (..., F, 3, 4) and homogeneous image coordinates
+    (p, q, r), each (..., P, F)."""
     rt = R.transpose(-1, -2)
-    trans = -torch.einsum("fij,fj->fi", rt, t)
+    trans = -torch.einsum("...fij,...fj->...fi", rt, t)
     pmat = K @ torch.cat([rt, trans[..., None]], dim=-1)
-    pqr = torch.einsum("fca,pa->pfc", pmat[:, :, :3], X) + pmat[None, :, :, 3]
+    pqr = torch.einsum("...fca,...pa->...pfc", pmat[..., :3], X) + pmat[..., None, :, :, 3]
     return pmat, pqr[..., 0], pqr[..., 1], pqr[..., 2]
 
 
 def reprojection_error(x, p, q, r, vis, f0: float) -> torch.Tensor:
-    """Sum of squared residuals E. r is sanitized where vis == 0 so masked
-    or padded entries cannot produce 0 * inf."""
+    """Sum of squared residuals E of each problem. r is sanitized where
+    vis == 0 so masked or padded entries cannot produce 0 * inf."""
     r = torch.where(vis > 0, r, torch.ones_like(r))
     e = (p / r - x[..., 0] / f0) ** 2 + (q / r - x[..., 1] / f0) ** 2
-    return torch.sum(vis * e)
+    return torch.sum(vis * e, dim=(-2, -1))
 
 
 def _camera_param_derivs(state: BAState, p: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
                          f0: float):
-    """(dp, dq, dr)/d(f, u0, v0, t, omega): (P, F, 9) each, for the points
-    ``state.X`` (P, 3)."""
+    """(dp, dq, dr)/d(f, u0, v0, t, omega): (..., P, F, 9) each, for the
+    points ``state.X`` (..., P, 3)."""
     f, u, t, R, X = state.f, state.u, state.t, state.R, state.X
     shape = p.shape
 
     # d/df
-    dpdf = (p - (u[:, 0] / f0)[None] * r) / f[None]
-    dqdf = (q - (u[:, 1] / f0)[None] * r) / f[None]
+    dpdf = (p - (u[..., 0] / f0)[..., None, :] * r) / f[..., None, :]
+    dqdf = (q - (u[..., 1] / f0)[..., None, :] * r) / f[..., None, :]
     zeros = torch.zeros_like(dpdf)
     # d/du
     r_over_f0 = r / f0
     # d/dt: per-image constants, broadcast
-    dpdt_f = -(f[:, None] * R[:, :, 0] + u[:, :1] * R[:, :, 2])  # (F, 3)
-    dqdt_f = -(f[:, None] * R[:, :, 1] + u[:, 1:2] * R[:, :, 2])
-    drdt_f = -f0 * R[:, :, 2]
+    dpdt_f = -(f[..., None] * R[..., :, 0] + u[..., :1] * R[..., :, 2])  # (..., F, 3)
+    dqdt_f = -(f[..., None] * R[..., :, 1] + u[..., 1:2] * R[..., :, 2])
+    drdt_f = -f0 * R[..., :, 2]
     # d/domega = cross(-d/dt, X - t)
-    x_minus_t = X[:, None, :] - t[None, :, :]  # (P, F, 3)
+    x_minus_t = X[..., :, None, :] - t[..., None, :, :]  # (..., P, F, 3)
 
     def stack(df, du0, du1, dt_f):
         out = torch.empty(shape + (9,), dtype=p.dtype, device=p.device)
         out[..., 0] = df
         out[..., 1] = du0
         out[..., 2] = du1
-        out[..., 3:6] = dt_f[None]
-        out[..., 6:9] = torch.linalg.cross(-dt_f[None], x_minus_t)
+        out[..., 3:6] = dt_f[..., None, :, :]
+        out[..., 6:9] = torch.linalg.cross(-dt_f[..., None, :, :], x_minus_t)
         return out
 
     return (stack(dpdf, r_over_f0, zeros, dpdt_f), stack(dqdf, zeros, r_over_f0, dqdt_f),
@@ -169,15 +179,15 @@ def _camera_param_derivs(state: BAState, p: torch.Tensor, q: torch.Tensor, r: to
 def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float):
     """Rank-2 Jacobian factors for a set of points (all of them, or one
     chunk): every second-derivative block is 2 * vis * (a1 (x) b1 +
-    a2 (x) b2), so downstream stages work from (a1, a2 (C, F, 3); b1, b2
-    (C, F, 9); residuals) without materializing the blocks they don't
-    need. Undistorted model, plain least squares. Returns (a1, a2, b1, b2,
-    res_p, res_q, vis_c)."""
+    a2 (x) b2), so downstream stages work from (a1, a2 (..., C, F, 3);
+    b1, b2 (..., C, F, 9); residuals) without materializing the blocks they
+    don't need. Undistorted model, plain least squares. Returns (a1, a2,
+    b1, b2, res_p, res_q, vis_c)."""
     st = state_cam._replace(X=X_c)
     K = build_K(st.f, st.u, f0)
     pmat, p, q, r = calc_pqr(X_c, K, st.R, st.t)
 
-    dpdX, dqdX, drdX = pmat[:, 0, :3], pmat[:, 1, :3], pmat[:, 2, :3]
+    dpdX, dqdX, drdX = (pmat[..., None, :, i, :3] for i in range(3))  # (..., 1, F, 3)
     dpdc, dqdc, drdc = _camera_param_derivs(st, p, q, r, f0)
 
     r = torch.where(vis_c > 0, r, torch.ones_like(r))  # 0 * inf guard (padding)
@@ -186,10 +196,10 @@ def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float):
 
     inv_r2 = (1.0 / (r * r))[..., None]
     r_, p_, q_ = r[..., None], p[..., None], q[..., None]
-    a1 = (r_ * dpdX[None] - p_ * drdX[None]) * inv_r2
-    a2 = (r_ * dqdX[None] - q_ * drdX[None]) * inv_r2
-    # (C, F, 9) planes, built in place and freed as soon as they are used:
-    # the derivative planes are the largest temporaries
+    a1 = (r_ * dpdX - p_ * drdX) * inv_r2
+    a2 = (r_ * dqdX - q_ * drdX) * inv_r2
+    # (..., C, F, 9) planes, built in place and freed as soon as they are
+    # used: the derivative planes are the largest temporaries
     b1 = dpdc.mul_(r_).sub_(p_ * drdc).mul_(inv_r2)
     del dpdc
     b2 = dqdc.mul_(r_).sub_(q_ * drdc).mul_(inv_r2)
@@ -198,91 +208,97 @@ def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float):
 
 
 def _point_grad_and_block(a1, a2, res_p, res_q, vis_c):
-    """d_P (C, 3) and matE (C, 3, 3) from the factors (with the unseen-
-    point identity guard), each a contraction over the camera axis."""
+    """d_P (..., C, 3) and matE (..., C, 3, 3) from the factors (with the
+    unseen-point identity guard), each a contraction over the camera axis."""
     vis_d = vis_c.expand(res_p.shape)
-    d_P = 2.0 * (torch.einsum("pf,pfx->px", vis_d * res_p, a1)
-                 + torch.einsum("pf,pfx->px", vis_d * res_q, a2))
+    d_P = 2.0 * (torch.einsum("...pf,...pfx->...px", vis_d * res_p, a1)
+                 + torch.einsum("...pf,...pfx->...px", vis_d * res_q, a2))
     visf = vis_d[..., None]
-    matE = 2.0 * (torch.einsum("pfi,pfj->pij", visf * a1, a1)
-                  + torch.einsum("pfi,pfj->pij", visf * a2, a2))
-    seen = (torch.sum(vis_d, dim=1) > 0).to(matE.dtype)
-    matE = matE + (1.0 - seen)[:, None, None] * torch.eye(3, dtype=matE.dtype, device=matE.device)
+    matE = 2.0 * (torch.einsum("...pfi,...pfj->...pij", visf * a1, a1)
+                  + torch.einsum("...pfi,...pfj->...pij", visf * a2, a2))
+    seen = (torch.sum(vis_d, dim=-1) > 0).to(matE.dtype)
+    matE = matE + (1.0 - seen)[..., None, None] * torch.eye(3, dtype=matE.dtype,
+                                                            device=matE.device)
     return d_P, matE
 
 
 def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float):
-    """Derivative blocks for a set of C points: d_P (C, 3), the masked d_F
-    (9F,), matE (C, 3, 3), matF (C, 3, 9F) with unmasked columns, matG
-    (F, 9, 9) and the error of these points.
+    """Derivative blocks for a set of C points: d_P (..., C, 3), the masked
+    d_F (..., 9F), matE (..., C, 3, 3), matF (..., C, 3, 9F) with unmasked
+    columns, matG (..., F, 9, 9) and the error of these points.
 
     Each sum over points is written as a contraction over the point axis
     (a batched product over cameras), and matF is written once in place,
     so no (C, F, 9, 9) or per-term (C, 3, F, 9) temporary exists."""
-    nf = state_cam.f.shape[0]
-    npts_c = X_c.shape[0]
+    nf = state_cam.f.shape[-1]
+    lead = X_c.shape[:-1]  # (..., C)
     a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(state_cam, X_c, x_c, vis_c, f0)
     vis_d = vis_c.expand(res_p.shape)
-    e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2))
+    e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2), dim=(-2, -1))
 
-    d_F = 2.0 * (torch.einsum("pf,pfj->fj", vis_d * res_p, b1)
-                 + torch.einsum("pf,pfj->fj", vis_d * res_q, b2))
-    d_F = d_F.reshape(9 * nf) * free
+    d_F = 2.0 * (torch.einsum("...pf,...pfj->...fj", vis_d * res_p, b1)
+                 + torch.einsum("...pf,...pfj->...fj", vis_d * res_q, b2))
+    d_F = d_F.reshape(lead[:-1] + (9 * nf,)) * free
 
     d_P, matE = _point_grad_and_block(a1, a2, res_p, res_q, vis_c)
 
     visf = vis_d[..., None]
-    matG = 2.0 * (torch.einsum("pfi,pfj->fij", visf * b1, b1)
-                  + torch.einsum("pfi,pfj->fij", visf * b2, b2))
+    matG = 2.0 * (torch.einsum("...pfi,...pfj->...fij", visf * b1, b1)
+                  + torch.einsum("...pfi,...pfj->...fij", visf * b2, b2))
     # matF[p, i, f, j] = 2 vis (a1[p, f, i] b1[p, f, j] + a2[p, f, i] b2[p, f, j])
     va1, va2 = (2.0 * visf) * a1, (2.0 * visf) * a2
-    matF = torch.empty((npts_c, 3, nf, 9), dtype=b1.dtype, device=b1.device)
+    matF = torch.empty(lead + (3, nf, 9), dtype=b1.dtype, device=b1.device)
     for i in range(3):
-        torch.mul(va1[..., i:i + 1], b1, out=matF[:, i])
-        matF[:, i].addcmul_(va2[..., i:i + 1], b2)
-    return d_P, d_F, matE, matF.view(npts_c, 3, 9 * nf), matG, e_chunk
+        torch.mul(va1[..., i:i + 1], b1, out=matF[..., i, :, :])
+        matF[..., i, :, :].addcmul_(va2[..., i:i + 1], b2)
+    return d_P, d_F, matE, matF.view(lead + (3, 9 * nf)), matG, e_chunk
 
 
 class _Derivs(NamedTuple):
     """Derivative blocks of one outer LM iteration."""
 
-    d_P: torch.Tensor  # (P, 3) gradient wrt points
-    d_F: torch.Tensor  # (9F,) gradient wrt cameras (gauge-masked)
-    matE: torch.Tensor  # (P, 3, 3) point blocks
-    matF: torch.Tensor  # (P, 3, 9F) coupling blocks (gauge-masked columns)
-    matG: torch.Tensor  # (F, 9, 9) camera blocks
+    d_P: torch.Tensor  # (..., P, 3) gradient wrt points
+    d_F: torch.Tensor  # (..., 9F) gradient wrt cameras (gauge-masked)
+    matE: torch.Tensor  # (..., P, 3, 3) point blocks
+    matF: torch.Tensor  # (..., P, 3, 9F) coupling blocks (gauge-masked columns)
+    matG: torch.Tensor  # (..., F, 9, 9) camera blocks
 
 
 def _compute_derivs(state: BAState, x, vis, free, f0: float):
     """All first and second derivative blocks for one outer LM iteration.
-    Returns (derivs, current E). vis is (P, F), or a (P, 1) column that
-    broadcasts."""
+    Returns (derivs, current E). vis is (..., P, F), or a (P, 1) column
+    that broadcasts."""
     d_P, d_F, matE, matF, matG, e_now = _chunk_blocks(state, state.X, x, vis, free, f0)
     return _Derivs(d_P=d_P, d_F=d_F, matE=matE, matF=matF.mul_(free), matG=matG), e_now
 
 
 def _damp(m: torch.Tensor, c) -> torch.Tensor:
-    """Blocks (..., n, n) with their diagonals scaled by (1 + c)."""
+    """Blocks (..., n, n) with their diagonals scaled by (1 + c); c is one
+    damping or one per lane (the leading dimensions of m)."""
     eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    if torch.is_tensor(c):
+        c = lane_view(c, m)
     return m + c * m * eye
 
 
 def _chol_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve the SPD system a x = b by Cholesky. A factor that fails (the
-    damped system is not positive definite) gives a NaN solution, so the
-    trial is rejected like any other, as ``cho_factor``'s NaNs are in the
-    JAX package; the check stays on the card."""
+    """Solve the SPD systems a x = b (..., n, n) by Cholesky. A factor that
+    fails (the damped system is not positive definite) gives a NaN
+    solution for that system, so the trial is rejected like any other, as
+    ``cho_factor``'s NaNs are in the JAX package; the check stays on the
+    card."""
     l, info = torch.linalg.cholesky_ex(a)
-    sol = torch.cholesky_solve(b[:, None], l)[:, 0]
-    return torch.where(info == 0, sol, torch.full_like(sol, float("nan")))
+    sol = torch.cholesky_solve(b[..., None], l)[..., 0]
+    return torch.where(info[..., None] == 0, sol, torch.full_like(sol, float("nan")))
 
 
 def _reduced_camera_system(schur: torch.Tensor, matGc: torch.Tensor, free: torch.Tensor):
-    """(9F, 9F) damped reduced camera system blockdiag(Gc) - schur, with
-    identity rows and columns at the gauge-fixed parameters."""
-    nf = matGc.shape[0]
+    """(..., 9F, 9F) damped reduced camera system blockdiag(Gc) - schur,
+    with identity rows and columns at the gauge-fixed parameters."""
+    nf = matGc.shape[-3]
     a = -schur
-    torch.diagonal(a.view(nf, 9, nf, 9), dim1=0, dim2=2).add_(matGc.permute(1, 2, 0))
+    blocks = a.view(a.shape[:-2] + (nf, 9, nf, 9))
+    torch.diagonal(blocks, dim1=-4, dim2=-2).add_(matGc.movedim(-3, -1))
     return a * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
 
 
@@ -291,77 +307,83 @@ def _camera_side_solve(derivs: _Derivs, matEc, matGc, free):
     camera blocks are 9x9 block-diagonal, so their inverse is closed form
     (``inv9_spd``) and the dense solve is (3P, 3P). Fixed parameters move
     exactly zero."""
-    npts = derivs.matE.shape[0]
-    nf9 = derivs.matF.shape[2]
+    lead = derivs.matE.shape[:-3]
+    npts = derivs.matE.shape[-3]
+    nf9 = derivs.matF.shape[-1]
     nf = nf9 // 9
     free_b = free.view(nf, 9)
     matGm = matGc * (free_b[:, :, None] * free_b[:, None, :])
     matGm = matGm + torch.eye(9, dtype=matGc.dtype, device=matGc.device) * (1.0 - free_b)[:, :, None]
-    ginv = inv9_spd(matGm)  # (F, 9, 9)
+    ginv = inv9_spd(matGm)  # (..., F, 9, 9)
 
-    fc = derivs.matF.view(npts, 3, nf, 9)
-    h = torch.einsum("pifa,fab->pifb", fc, ginv).reshape(npts * 3, nf9)
+    fc = derivs.matF.view(lead + (npts, 3, nf, 9))
+    h = torch.einsum("...pifa,...fab->...pifb", fc, ginv).reshape(lead + (npts * 3, nf9))
     # the (3P, 3P) Schur complement of the camera block, one product
-    s = -(h @ derivs.matF.view(npts * 3, nf9).T)
-    torch.diagonal(s.view(npts, 3, npts, 3), dim1=0, dim2=2).add_(matEc.permute(1, 2, 0))
+    s = -(h @ derivs.matF.view(lead + (npts * 3, nf9)).transpose(-1, -2))
+    torch.diagonal(s.view(lead + (npts, 3, npts, 3)), dim1=-4, dim2=-2).add_(
+        matEc.movedim(-3, -1))
 
-    d_F = derivs.d_F.view(nf, 9)
-    gd = torch.einsum("fab,fb->fa", ginv, d_F)
-    rhs = -derivs.d_P + torch.einsum("pifa,fa->pi", fc, gd)
-    delta_x = _chol_solve(s, rhs.reshape(npts * 3)).view(npts, 3)
+    d_F = derivs.d_F.view(lead + (nf, 9))
+    gd = torch.einsum("...fab,...fb->...fa", ginv, d_F)
+    rhs = -derivs.d_P + torch.einsum("...pifa,...fa->...pi", fc, gd)
+    delta_x = _chol_solve(s, rhs.reshape(lead + (npts * 3,))).view(lead + (npts, 3))
 
-    ftdx = torch.einsum("pifa,pi->fa", fc, delta_x)
-    delta_xi = -torch.einsum("fab,fb->fa", ginv, d_F + ftdx).reshape(nf9)
+    ftdx = torch.einsum("...pifa,...pi->...fa", fc, delta_x)
+    delta_xi = -torch.einsum("...fab,...fb->...fa", ginv, d_F + ftdx).reshape(lead + (nf9,))
     return delta_xi * free, delta_x
 
 
 def _damped_solve(derivs: _Derivs, c, free):
     """Solve the damped normal equations by the point-block Schur
     complement, or from the camera side when 3P < 9F. Returns (delta_xi
-    (9F,), delta_X (P, 3)); gauge-fixed entries of delta_xi are exactly
-    zero."""
-    npts = derivs.matE.shape[0]
-    nf9 = derivs.matF.shape[2]
+    (..., 9F), delta_X (..., P, 3)); gauge-fixed entries of delta_xi are
+    exactly zero."""
+    lead = derivs.matE.shape[:-3]
+    npts = derivs.matE.shape[-3]
+    nf9 = derivs.matF.shape[-1]
     matEc = _damp(derivs.matE, c)
     matGc = _damp(derivs.matG, c)
     if npts * 3 < nf9:
         return _camera_side_solve(derivs, matEc, matGc, free)
 
-    einv = inv3x3(matEc)  # (P, 3, 3)
-    einv_f = torch.einsum("pxy,pym->pxm", einv, derivs.matF)  # (P, 3, 9F)
+    einv = inv3x3(matEc)  # (..., P, 3, 3)
+    einv_f = torch.einsum("...pxy,...pym->...pxm", einv, derivs.matF)  # (..., P, 3, 9F)
     # A = blockdiag(Gc) - sum_p F^T Einv F as one (9F, 3P) x (3P, 9F) product
-    schur = derivs.matF.view(npts * 3, nf9).T @ einv_f.view(npts * 3, nf9)
+    flat = lead + (npts * 3, nf9)
+    schur = derivs.matF.view(flat).transpose(-1, -2) @ einv_f.view(flat)
     a = _reduced_camera_system(schur, matGc, free)
     del schur
-    b = torch.einsum("pxm,px->m", einv_f, derivs.d_P) - derivs.d_F
+    b = torch.einsum("...pxm,...px->...m", einv_f, derivs.d_P) - derivs.d_F
     del einv_f
     delta_xi = _chol_solve(a, b) * free
 
-    rhs = torch.einsum("pxm,m->px", derivs.matF, delta_xi) + derivs.d_P
-    delta_x = -torch.einsum("pxy,py->px", einv, rhs)
+    rhs = torch.einsum("...pxm,...m->...px", derivs.matF, delta_xi) + derivs.d_P
+    delta_x = -torch.einsum("...pxy,...py->...px", einv, rhs)
     return delta_xi, delta_x
 
 
 def _predicted_reduction(derivs: _Derivs, delta_xi, delta_x, c) -> torch.Tensor:
     """Predicted decrease of the damped quadratic model,
     1/2 (c d^T D d - g^T d) with D = diag(H): the denominator of the
-    Nielsen gain ratio."""
-    diag_e = torch.diagonal(derivs.matE, dim1=-2, dim2=-1)  # (P, 3)
-    diag_g = torch.diagonal(derivs.matG, dim1=-2, dim2=-1).reshape(-1)  # (9F,)
-    dDd = torch.sum(delta_x * diag_e * delta_x) + torch.sum(delta_xi * diag_g * delta_xi)
-    g_d = torch.sum(derivs.d_P * delta_x) + torch.sum(derivs.d_F * delta_xi)
+    Nielsen gain ratio, per lane."""
+    diag_e = torch.diagonal(derivs.matE, dim1=-2, dim2=-1)  # (..., P, 3)
+    diag_g = torch.diagonal(derivs.matG, dim1=-2, dim2=-1)  # (..., F, 9)
+    diag_g = diag_g.reshape(diag_g.shape[:-2] + (-1,))
+    dDd = (torch.sum(delta_x * diag_e * delta_x, dim=(-2, -1))
+           + torch.sum(delta_xi * diag_g * delta_xi, dim=-1))
+    g_d = torch.sum(derivs.d_P * delta_x, dim=(-2, -1)) + torch.sum(derivs.d_F * delta_xi, dim=-1)
     return 0.5 * (c * dDd - g_d)
 
 
 def _apply_update(state: BAState, delta_xi: torch.Tensor, delta_x: torch.Tensor) -> BAState:
     """Parameter update; rotations through the axis-angle exponential."""
-    d = delta_xi.reshape(state.f.shape[0], 9)
+    d = delta_xi.reshape(state.f.shape + (9,))
     return BAState(
         X=state.X + delta_x,
-        f=state.f + d[:, 0],
-        u=state.u + d[:, 1:3],
-        t=state.t + d[:, 3:6],
-        R=rodrigues(d[:, 6:9]) @ state.R,
+        f=state.f + d[..., 0],
+        u=state.u + d[..., 1:3],
+        t=state.t + d[..., 3:6],
+        R=rodrigues(d[..., 6:9]) @ state.R,
     )
 
 
@@ -382,21 +404,30 @@ def _residuals(state: BAState, x, vis, f0: float):
 
 
 def _state_error(state: BAState, x, vis, f0: float) -> torch.Tensor:
-    """Reprojection error E of ``state`` over the observations x (P, F, 2)."""
+    """Reprojection error E of ``state`` over the observations x
+    (..., P, F, 2), per lane."""
     _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
     return reprojection_error(x, p, q, r, vis, f0)
 
 
+ROBUST_LOSSES = ("huber", "cauchy", "soft_l1", "arctan")
+
+
 def _check_ported(config: LMConfig, axis_name=None, dist=None, solver=None) -> None:
-    """Raise for the options whose code is not ported yet."""
+    """Raise for the options whose code is not ported yet. None, "" and
+    "none" all mean plain least squares; an unknown loss name raises
+    ``ValueError``, as the JAX package's ``resolve_robust`` does."""
     if axis_name is not None:
         raise NotImplementedError("the sharded cores are not ported yet")
     if solver is not None:
         raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet")
     if dist is not None or config.distortion_rounds > 0:
         raise NotImplementedError("distortion models are not ported yet")
-    if config.robust not in (None, "", "none"):
-        raise NotImplementedError("robust losses are not ported yet")
+    if config.robust in (None, "", "none"):
+        return
+    if config.robust not in ROBUST_LOSSES:
+        raise ValueError(f"unknown robust loss: {config.robust!r} (use {ROBUST_LOSSES} or None)")
+    raise NotImplementedError("robust losses are not ported yet")
 
 
 def lm_step(x, state: BAState, vis, free, f0: float, c):
@@ -423,85 +454,145 @@ def _lm_damping(config: LMConfig, accepted, c, nu, e_prev, e_trial, pred):
     return c, nu
 
 
+class LMOutcome(NamedTuple):
+    """What the lane LM loop returns: the final state, E, damping (c, nu)
+    and iterations per lane, the stacked log (or None), and the number of
+    retries the lanes took together (one host read each)."""
+
+    state: BAState
+    error: torch.Tensor
+    c: torch.Tensor
+    nu: torch.Tensor
+    n_iter: int | torch.Tensor
+    log: dict | None
+    retries: int
+
+
+def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=None,
+             init_nu=None) -> LMOutcome:
+    """The Levenberg–Marquardt loop over lanes: problems stacked along the
+    leading dimensions of ``state0`` (none for one problem), each with its
+    own damping, accept decisions and stop, as ``vmap`` runs the JAX
+    ``lm_optimize``.
+
+    Each outer iteration builds every lane's derivative blocks, then
+    retries: every lane is re-damped and re-solved from its blocks, and a
+    lane that has not yet accepted takes the trial, its error and the new
+    damping; a lane that has accepted or finished keeps them. The retries
+    end when every lane has accepted or after ``max_inner_retries``. A lane
+    that accepted nothing keeps its state and stops, as does one whose E
+    moved by at most ``delta_tol``; the others go on until ``max_iter``.
+    Finished lanes still pay their share of every solve and do not hold up
+    the retries. One host read per retry asks whether any lane is still
+    retrying and whether any will iterate again.
+
+    Where the JAX loop would run a lane whose E is NaN to ``max_iter``
+    (``NaN <= delta_tol`` is false), this one stops it after its first
+    iteration, which accepts nothing; a finite lane runs the same
+    iterations in both."""
+    dt, dev = x.dtype, x.device
+    lanes = state0.f.shape[:-1]
+    nielsen = config.damping == "nielsen"
+    state = state0
+    e_prev = _state_error(state0, x, vis, f0)
+    run = torch.ones(lanes, dtype=torch.bool, device=dev)  # lanes still iterating
+    history = [(state0, e_prev, run)] if config.record_log else None
+    c = as_tensor(config.init_damping if init_c is None else init_c, dev, dt).expand(lanes)
+    nu = as_tensor(2.0 if init_nu is None else init_nu, dev, dt).expand(lanes)
+    n_iter = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    count = retries = 0
+    while count < config.max_iter:
+        derivs, _ = _compute_derivs(state, x, vis, free, f0)
+        accepted = ~run  # finished lanes take no trial
+        trial, e_trial = state, e_prev
+        run_next, iterating = torch.zeros_like(run), False  # no retry: every lane stops
+        for _ in range(config.max_inner_retries):
+            retry = ~accepted
+            delta_xi, delta_x = _damped_solve(derivs, c, free)
+            cand = _apply_update(state, delta_xi, delta_x)
+            e_cand = _state_error(cand, x, vis, f0)
+            acc_t = e_cand <= e_prev
+            pred = _predicted_reduction(derivs, delta_xi, delta_x, c) if nielsen else None
+            c, nu = keep_all(retry, _lm_damping(config, acc_t, c, nu, e_prev, e_cand, pred),
+                             (c, nu))
+            trial = keep_all(retry, cand, trial)
+            e_trial = keep(retry, e_cand, e_trial)
+            accepted = accepted | acc_t
+            retries += 1
+            # lanes that will iterate again: running, accepted, and E moved
+            # by more than delta_tol (NaN counts as converged here)
+            run_next = run & accepted & ~(torch.abs(e_trial - e_prev) <= config.delta_tol)
+            # the one host read of the retry
+            retrying, iterating = torch.stack([(~accepted).any(), run_next.any()]).tolist()
+            if not retrying:
+                break
+        del derivs
+        took = run & accepted
+        state = keep_all(took, trial, state)
+        e_prev = keep(took, e_trial, e_prev)
+        if not nielsen:
+            c = keep(run, c / config.divisor, c)
+        n_iter = n_iter + run
+        count += 1
+        if history is not None:
+            history.append((state, e_prev, run))
+        run = run_next
+        if not iterating:
+            break
+    return LMOutcome(state=state, error=e_prev, c=c, nu=nu,
+                     n_iter=count if not lanes else n_iter,
+                     log=_stack_log(history, config.max_iter, len(lanes)), retries=retries)
+
+
 def lm_optimize(x, state0: BAState, vis, free, f0: float, config: LMConfig, axis_name=None,
                 init_c=None, solver=None, dist=None, init_nu=None):
-    """Levenberg–Marquardt outer loop. The inner retry re-damps and
-    re-solves from the same derivative blocks until the trial error does
-    not exceed the current one (at most ``max_inner_retries`` times); if no
-    trial is accepted, the state and error stay and the loop stops. The
-    reference schedule divides c by ``config.divisor`` after each
-    iteration; stop when |E' - E| <= delta_tol or after max_iter.
+    """Levenberg–Marquardt outer loop (:func:`lm_lanes`). The inner retry
+    re-damps and re-solves from the same derivative blocks until the trial
+    error does not exceed the current one (at most ``max_inner_retries``
+    times); if no trial is accepted, the state and error stay and the loop
+    stops. The reference schedule divides c by ``config.divisor`` after
+    each iteration; stop when |E' - E| <= delta_tol or after max_iter.
     ``init_c``/``init_nu`` resume a previous segment's damping.
 
     Returns (state, error, c, nu, n_iter, log): with ``config.record_log``
     the log holds "points", "basis", "pos" and "reprojection_error" stacked
     over max_iter + 1 rows (zero past the last iteration), else None."""
     _check_ported(config, axis_name, dist, solver)
-    dt, dev = x.dtype, x.device
-    state = state0
-    e_prev = _state_error(state0, x, vis, f0)
-    history = [(state0, e_prev)] if config.record_log else None
-    c = as_tensor(config.init_damping if init_c is None else init_c, dev, dt)
-    nu = as_tensor(2.0 if init_nu is None else init_nu, dev, dt)
-    n_iter = 0
-    while n_iter < config.max_iter:
-        derivs, _ = _compute_derivs(state, x, vis, free, f0)
-        accepted = False
-        tries = 0
-        while not accepted and tries < config.max_inner_retries:
-            delta_xi, delta_x = _damped_solve(derivs, c, free)
-            trial = _apply_update(state, delta_xi, delta_x)
-            e_trial = _state_error(trial, x, vis, f0)
-            acc_t = e_trial <= e_prev
-            pred = (_predicted_reduction(derivs, delta_xi, delta_x, c)
-                    if config.damping == "nielsen" else None)
-            c, nu = _lm_damping(config, acc_t, c, nu, e_prev, e_trial, pred)
-            tries += 1
-            # the one host read of the retry: accepted, and converged if so
-            accepted, done = torch.stack(
-                [acc_t, torch.abs(e_trial - e_prev) <= config.delta_tol]
-            ).tolist()
-        del derivs
-        if accepted:
-            state, e_prev = trial, e_trial
-        else:  # never accepted (divergence/NaN): keep the state and stop
-            done = True
-        if config.damping != "nielsen":
-            c = c / config.divisor
-        n_iter += 1
-        if history is not None:
-            history.append((state, e_prev))
-        if done:
-            break
-    return state, e_prev, c, nu, n_iter, _stack_log(history, config.max_iter)
+    out = lm_lanes(x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu)
+    return out.state, out.error, out.c, out.nu, out.n_iter, out.log
 
 
-def _stack_log(history, max_iter: int) -> dict | None:
-    """The recorded (state, E) pairs as (max_iter + 1, ...) tensors, zero
-    past the last iteration, under the JAX package's log keys."""
+def _stack_log(history, max_iter: int, n_lane_dims: int) -> dict | None:
+    """The recorded (state, E) pairs as tensors with max_iter + 1 rows on
+    the axis after the lane dimensions, zero past each lane's last
+    iteration, under the JAX package's log keys."""
     if history is None:
         return None
-    states, errors = zip(*history)
+    states, errors, runs = zip(*history)
     columns = {"points": [s.X for s in states], "basis": [s.R for s in states],
                "pos": [s.t for s in states], "reprojection_error": errors}
     log = {}
     for key, rows in columns.items():
-        rows = torch.stack(rows)
-        log[key] = rows.new_zeros((max_iter + 1,) + rows.shape[1:])
-        log[key][: len(history)] = rows
+        rows = torch.stack([keep(r, v, torch.zeros_like(v)) for v, r in zip(rows, runs)],
+                           dim=n_lane_dims)
+        shape = list(rows.shape)
+        shape[n_lane_dims] = max_iter + 1
+        log[key] = rows.new_zeros(shape)
+        log[key].narrow(n_lane_dims, 0, len(history)).copy_(rows)
     return log
 
 
 def _prepare_problem(x, init_X, init_K, init_R, init_t, f0: float, visibility, axis: str,
                      device):
     """Tensors on the device in x's dtype, the gauge-normalized start and
-    the gauge mask: (x, vis, state0, free, restore info). Without a
-    visibility mask, vis is a (P, 1) column that broadcasts through every
-    masked reduction."""
+    the gauge mask: (x, vis, state0, free, restore info). x is
+    (..., P, F, 2) with lane dimensions first. Without a visibility mask,
+    vis is a (P, 1) column that broadcasts through every masked
+    reduction."""
     dev = resolve_device(device)
     dt = result_dtype(x)
     x = as_tensor(x, dev, dt)
-    npts, nf, _ = x.shape
+    npts, nf = x.shape[-3], x.shape[-2]
     if visibility is None:
         vis = torch.ones((npts, 1), dtype=dt, device=dev)
     else:
@@ -533,17 +624,20 @@ def bundle_adjust(
     device=None,
 ) -> BAResult:
     """Full bundle adjustment: gauge-normalize, LM-optimize, restore.
-    x (P, F, 2); init_K/R/t (F, ...); the optional visibility is (P, F).
-    Runs on the card unless ``device`` says otherwise; the working dtype
-    is x's. The returned ``log`` always carries the final damping (c, nu),
-    so a segmented run resumes through ``init_c``/``init_nu``."""
+    x (..., P, F, 2); init_K/R/t (..., F, ...); the optional visibility is
+    (..., P, F). Leading dimensions are lanes, each its own problem
+    (:func:`lm_lanes`); ``init_c``/``init_nu`` may be one value or one per
+    lane. Runs on the card unless ``device`` says otherwise; the working
+    dtype is x's. The returned ``log`` always carries the final damping
+    (c, nu), so a segmented run resumes through ``init_c``/``init_nu``,
+    and the retries the lanes took together (``n_solver_retries``)."""
     _check_ported(config, dist=distortion)
     x, vis, state0, free, info = _prepare_problem(
         x, init_X, init_K, init_R, init_t, f0, visibility, axis, device
     )
-    final, e, c_f, nu_f, n_iter, log = lm_optimize(
-        x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu
-    )
+    out = lm_lanes(x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu)
+    final = out.state
     Xg, Rg, tg = restore_gauge(info, final.X, final.R, final.t)
-    return BAResult(X=Xg, K=build_K(final.f, final.u, f0), R=Rg, t=tg, error=e,
-                    n_iter=n_iter, log={**(log or {}), "c": c_f, "nu": nu_f})
+    return BAResult(X=Xg, K=build_K(final.f, final.u, f0), R=Rg, t=tg, error=out.error,
+                    n_iter=out.n_iter, log={**(out.log or {}), "c": out.c, "nu": out.nu,
+                                            "n_solver_retries": out.retries})

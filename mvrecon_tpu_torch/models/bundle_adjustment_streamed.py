@@ -37,6 +37,7 @@ from .bundle_adjustment import (
     BAResult,
     BAState,
     _apply_update,
+    _check_ported,
     _chol_solve,
     _chunk_blocks,
     _chunk_factors,
@@ -279,12 +280,11 @@ def bundle_adjust_streamed(
     the results are identical either way. ``timer`` (an ``EventTimer``)
     records ``pass1``, ``pass2`` and ``h2d`` spans on the card.
 
-    Distortion, ``config.distortion_rounds > 0`` and ``config.robust`` are
-    not ported yet and raise ``NotImplementedError``."""
-    if distortion is not None or config.distortion_rounds > 0:
-        raise NotImplementedError("distortion models are not ported yet")
-    if config.robust is not None:
-        raise NotImplementedError("robust losses are not ported yet")
+    Distortion, ``config.distortion_rounds > 0`` and the robust losses are
+    not ported yet and raise ``NotImplementedError`` (``_check_ported``:
+    None, "" and "none" are plain least squares, an unknown loss name
+    raises ``ValueError``)."""
+    _check_ported(config, dist=distortion)
     dev = resolve_device(device)
     x_host = np.asarray(x_host)
     dt = result_dtype(x_host)

@@ -1,11 +1,13 @@
 """End-to-end reconstruction pipelines.
 
-Counterpart of ``mvrecon_tpu/models/pipelines.py``: the perspective
-pipeline (self-calibration, then dense BA) and its large-scale variant
+Counterpart of ``mvrecon_tpu/models/pipelines.py``: the affine pipeline
+(affine self-calibration, then dense BA), the perspective pipeline
+(self-calibration, then dense BA) and its large-scale variant
 (self-calibration, an optional camera bootstrap on a point subsample, then
 chunked BA), on one device. Each stage's wall goes to an optional
-``StageTimer``. The affine pipeline and the sharded calibration
-(``mesh``) are not ported yet.
+``StageTimer``. The affine and the dense perspective pipeline take leading
+scene dimensions, which run as lanes (``parallel/batched.py``). The
+sharded calibration (``mesh``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,25 +20,76 @@ import torch
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
 from ..ops.triangulation import triangulate
 from ..runtime.profiling import StageTimer
+from .affine import affine_self_calibration
 from .bundle_adjustment import bundle_adjust
 from .bundle_adjustment_chunked import bundle_adjust_chunked
 from .perspective import perspective_self_calibration
 
 
 class ReconstructionResult(NamedTuple):
-    X: torch.Tensor  # (P, 3)
-    K: torch.Tensor  # (F, 3, 3)
-    R: torch.Tensor  # (F, 3, 3)
-    t: torch.Tensor  # (F, 3)
+    """One scene's reconstruction, or S scenes' with a leading axis on
+    every field (``error``, ``n_iter`` and ``status`` then (S,) tensors)."""
+
+    X: torch.Tensor  # (..., P, 3)
+    K: torch.Tensor  # (..., F, 3, 3)
+    R: torch.Tensor  # (..., F, 3, 3)
+    t: torch.Tensor  # (..., F, 3)
     error: torch.Tensor  # final BA reprojection error (sum of squares / f0^2)
-    n_iter: int  # BA iterations
+    n_iter: int | torch.Tensor  # BA iterations
     calib_X: torch.Tensor  # pre-BA points (the self-calibration output)
-    status: int  # perspective calibration status (0 = ok)
+    status: int | torch.Tensor  # perspective calibration status (0 = ok); 0 for affine
     ba_log: dict | None = None
 
 
 def _stage(timer: StageTimer | None, name: str):
     return timer.stage(name) if timer is not None else contextlib.nullcontext()
+
+
+def affine_reconstruction(
+    x,
+    f,
+    model: str = "paraperspective",
+    f0: float = 1.0,
+    config: LMConfig = LMConfig(scale_factor=2.0, delta_tol=1e-8, max_iter=100),
+    visibility=None,
+    device=None,
+    timer: StageTimer | None = None,
+) -> ReconstructionResult:
+    """Affine pipeline on observations x (..., F, P, 2) with focal lengths
+    f (..., F) (used by the paraperspective model): affine
+    self-calibration -> the heuristic camera start t = -3 R[:, :, 2],
+    K = I -> dense BA in the x-up_z-forward gauge.
+
+    The calibration pins the sign of each SVD column (``canonical_signs``,
+    the convention of the JAX package's point-sharded affine path) where
+    the JAX ``affine_reconstruction`` keeps its backend's. An odd number
+    of flipped columns mirrors the affine solution, a branch that BA does
+    not leave within 50 iterations, and LAPACK, MKL and cuSOLVER pick the
+    signs differently, so only a pinned convention makes the card and the
+    CPU take one branch.
+
+    visibility, an optional (P, F) mask, is honored by BA only: the
+    calibration keeps the full-visibility contract, so masked x entries
+    need finite placeholders. Leading scene dimensions run as lanes. Runs
+    on the card unless ``device`` says otherwise; the working dtype is
+    x's. ``timer`` records the wall of each stage."""
+    dev = resolve_device(device)
+    x = as_tensor(x, dev, result_dtype(x))
+    with _stage(timer, "affine_self_calibration"):
+        S, R = affine_self_calibration(x, model=model, f=f, canonical_signs=True, device=dev)
+    t = -3.0 * R[..., :, :, 2]
+    K = torch.eye(3, dtype=x.dtype, device=dev).expand(R.shape)
+    with _stage(timer, "bundle_adjustment"):
+        ba = bundle_adjust(
+            x.transpose(-3, -2), S, K, R, t, f0=f0, visibility=visibility,
+            axis="x-up_z-forward", config=config, device=dev,
+        )
+    batch = x.shape[:-3]
+    status = torch.zeros(batch, dtype=torch.int64, device=dev) if batch else 0
+    return ReconstructionResult(
+        X=ba.X, K=ba.K, R=ba.R, t=ba.t, error=ba.error, n_iter=ba.n_iter,
+        calib_X=S, status=status, ba_log=ba.log,
+    )
 
 
 def euclidean_reconstruction(
@@ -50,15 +103,15 @@ def euclidean_reconstruction(
     device=None,
     timer: StageTimer | None = None,
 ) -> ReconstructionResult:
-    """Perspective pipeline on observations x (F, P, 2): self-calibration
-    (projective depths and the metric upgrade) -> dense BA in the
-    x-up_z-forward gauge, from calibration's output.
+    """Perspective pipeline on observations x (..., F, P, 2):
+    self-calibration (projective depths and the metric upgrade) -> dense
+    BA in the x-up_z-forward gauge, from calibration's output.
 
     visibility, an optional (P, F) mask, is honored by BA only: the
     calibration keeps the full-visibility contract, so masked x entries
-    need finite placeholders. Runs on the card unless ``device`` says
-    otherwise; the working dtype is x's. ``timer`` records the wall of
-    each stage."""
+    need finite placeholders. Leading scene dimensions run as lanes. Runs
+    on the card unless ``device`` says otherwise; the working dtype is
+    x's. ``timer`` records the wall of each stage."""
     dev = resolve_device(device)
     x = as_tensor(x, dev, result_dtype(x))
     with _stage(timer, "perspective_self_calibration"):
@@ -67,7 +120,7 @@ def euclidean_reconstruction(
         )
     with _stage(timer, "bundle_adjustment"):
         ba = bundle_adjust(
-            x.transpose(0, 1), calib.X, calib.K, calib.R, calib.t, f0=f0,
+            x.transpose(-3, -2), calib.X, calib.K, calib.R, calib.t, f0=f0,
             visibility=visibility, axis="x-up_z-forward", config=config, device=dev,
         )
     return ReconstructionResult(

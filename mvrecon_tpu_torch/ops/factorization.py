@@ -7,9 +7,12 @@ from __future__ import annotations
 
 import torch
 
+from .linalg import svd
+
 
 def factorization_method(w: torch.Tensor, n_rank: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
     """Factor W (..., M, P) into motion (..., M, n_rank) and shape
-    (..., n_rank, P) with the leading factors of the reduced SVD."""
-    u, s, vt = torch.linalg.svd(w, full_matrices=False)
+    (..., n_rank, P) with the leading factors of the reduced SVD
+    (``ops.linalg.svd``: a non-finite W gives NaN factors)."""
+    u, s, vt = svd(w)
     return u[..., :, :n_rank], s[..., :n_rank, None] * vt[..., :n_rank, :]

@@ -1,11 +1,20 @@
-"""Small-matrix linear algebra: closed-form 3x3 inverse, determinant and
+"""Small-matrix linear algebra: batched ``eigh`` and ``svd`` that isolate
+non-finite matrices, the closed-form 3x3 inverse, determinant and
 Cholesky, the lower-triangular inverse, the blocked 9x9 Cholesky and SPD
-inverse, the smallest eigenvector of a symmetric matrix, and the
-nearest-orthogonal (polar) factor.
+inverse, the pseudo-inverse, the smallest eigenvector of a symmetric
+matrix, and the nearest-orthogonal (polar) factor.
 
 Counterpart of ``mvrecon_tpu/ops/linalg.py``. The JAX package's Jacobi
 eigensolver exists only because small batched ``eigh`` is slow on a TPU;
 here ``torch.linalg.eigh`` takes its place, through :func:`eigh`.
+
+``torch.linalg.eigh`` and ``torch.linalg.svd`` raise for a whole batch
+when one matrix in it is not finite, where XLA's decompositions return
+NaN for that matrix alone. Every batched decomposition of the port goes
+through :func:`eigh` or :func:`svd`, which decompose a finite placeholder
+in place of each non-finite matrix and write NaN into its outputs, so one
+poisoned scene of a batch ends non-finite and flags itself while the
+others are untouched.
 """
 
 from __future__ import annotations
@@ -19,16 +28,54 @@ import torch
 EIGH_BATCH = 16384
 
 
+def _finite_or_placeholder(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a with each non-finite (..., m, n) matrix replaced by the identity's
+    leading block, the (...,) mask of finite matrices)."""
+    ok = torch.isfinite(a).all(dim=-1).all(dim=-1)
+    eye = torch.eye(a.shape[-2], a.shape[-1], dtype=a.dtype, device=a.device)
+    return torch.where(ok[..., None, None], a, eye), ok
+
+
+def _nan_where_not(ok: torch.Tensor, out: torch.Tensor, core_dims: int) -> torch.Tensor:
+    """``out`` with NaN in every batch entry where ``ok`` is False."""
+    mask = ok.reshape(ok.shape + (1,) * core_dims)
+    return torch.where(mask, out, torch.full_like(out, float("nan")))
+
+
 def eigh(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``torch.linalg.eigh`` of (..., n, n) symmetric matrices (ascending
-    eigenvalues), in slices of at most ``EIGH_BATCH`` matrices."""
+    eigenvalues), in slices of at most ``EIGH_BATCH`` matrices. A matrix
+    with a non-finite entry gets all-NaN eigenvalues and eigenvectors; the
+    others are decomposed as if alone."""
+    a, ok = _finite_or_placeholder(a)
     flat = a.reshape((-1,) + a.shape[-2:])
     if flat.shape[0] <= EIGH_BATCH:
-        return torch.linalg.eigh(a)
-    parts = [torch.linalg.eigh(m) for m in flat.split(EIGH_BATCH)]
-    w = torch.cat([p[0] for p in parts]).reshape(a.shape[:-1])
-    v = torch.cat([p[1] for p in parts]).reshape(a.shape)
-    return w, v
+        w, v = torch.linalg.eigh(a)
+    else:
+        parts = [torch.linalg.eigh(m) for m in flat.split(EIGH_BATCH)]
+        w = torch.cat([p[0] for p in parts]).reshape(a.shape[:-1])
+        v = torch.cat([p[1] for p in parts]).reshape(a.shape)
+    return _nan_where_not(ok, w, 1), _nan_where_not(ok, v, 2)
+
+
+def svd(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reduced ``torch.linalg.svd`` (U, S, Vh) of (..., m, n) matrices. A
+    matrix with a non-finite entry gets all-NaN factors; the others are
+    decomposed as if alone."""
+    a, ok = _finite_or_placeholder(a)
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    return _nan_where_not(ok, u, 2), _nan_where_not(ok, s, 1), _nan_where_not(ok, vh, 2)
+
+
+def pinv(a: torch.Tensor) -> torch.Tensor:
+    """Moore–Penrose pseudo-inverse of (..., m, n) matrices through
+    :func:`svd`, with ``jnp.linalg.pinv``'s cutoff: singular values at or
+    below 10 max(m, n) eps times the largest are dropped."""
+    u, s, vh = svd(a)
+    rcond = 10.0 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
+    keep = s > rcond * s[..., :1]
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)), torch.zeros_like(s))
+    return torch.einsum("...ki,...k,...jk->...ij", vh, s_inv, u)
 
 
 def inv3x3(m: torch.Tensor) -> torch.Tensor:
@@ -72,6 +119,12 @@ def min_eigvec_sym(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     matrix (``eigh`` sorts ascending)."""
     w, v = eigh(a)
     return w[..., 0], v[..., :, 0]
+
+
+def orthonormalize(r: torch.Tensor) -> torch.Tensor:
+    """Nearest orthogonal matrix to each (..., 3, 3) matrix: the SVD polar
+    factor U V^T, computed by :func:`polar_orthogonal3`."""
+    return polar_orthogonal3(r)
 
 
 def _unit_or(x: torch.Tensor, fallback: torch.Tensor, tiny: float) -> torch.Tensor:

@@ -28,25 +28,25 @@ def _pairs(n: int) -> list[tuple[int, int]]:
 
 
 def sym_reduce(bcal_flat: torch.Tensor, n: int) -> torch.Tensor:
-    """Flattened (n^2, n^2) fourth-moment matrix -> the reduced symmetric
-    matrix of side n + |pairs| (1 on diag-diag, sqrt(2) on diag-pair, 2 on
-    pair-pair)."""
+    """Flattened (..., n^2, n^2) fourth-moment matrix -> the reduced
+    symmetric matrix of side n + |pairs| (1 on diag-diag, sqrt(2) on
+    diag-pair, 2 on pair-pair)."""
     pairs = _pairs(n)
     idx = [a * n + a for a in range(n)] + [i * n + j for i, j in pairs]
     wgt = [1.0] * n + [math.sqrt(2.0)] * len(pairs)
     ix = torch.tensor(idx, device=bcal_flat.device)
     w = torch.tensor(wgt, dtype=bcal_flat.dtype, device=bcal_flat.device)
-    return bcal_flat[ix][:, ix] * w[:, None] * w[None, :]
+    return bcal_flat[..., ix, :][..., :, ix] * w[:, None] * w[None, :]
 
 
 def sym_expand(tau: torch.Tensor, n: int) -> torch.Tensor:
-    """Reduced symmetric vector (n + |pairs|,) -> symmetric (n, n) matrix
-    with the off-diagonals divided by sqrt(2)."""
+    """Reduced symmetric vectors (..., n + |pairs|) -> symmetric (..., n, n)
+    matrices with the off-diagonals divided by sqrt(2)."""
     pairs = _pairs(n)
-    out = torch.diag(tau[:n])
-    inv_sqrt2 = 1.0 / math.sqrt(2.0)
+    out = torch.diag_embed(tau[..., :n])
     rows = torch.tensor([i for i, _ in pairs], device=tau.device)
     cols = torch.tensor([j for _, j in pairs], device=tau.device)
-    off = tau[n:] * inv_sqrt2
-    out = out.index_put((rows, cols), off).index_put((cols, rows), off)
+    off = tau[..., n:] * (1.0 / math.sqrt(2.0))
+    out[..., rows, cols] = off
+    out[..., cols, rows] = off
     return out

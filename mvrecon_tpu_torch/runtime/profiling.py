@@ -18,7 +18,8 @@ import torch
 
 class StageTimer:
     """Host wall per named stage, synchronized with the card when one is
-    in use."""
+    in use. A stage that runs more than once (once per block of scenes)
+    adds up its walls."""
 
     def __init__(self):
         self.times: dict[str, float] = {}
@@ -35,7 +36,7 @@ class StageTimer:
         with torch.profiler.record_function(name):
             yield
         self._sync()
-        self.times[name] = time.perf_counter() - start
+        self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - start
 
 
 class EventTimer:

@@ -303,3 +303,32 @@ def test_triangulate_matches_jax(masked, monkeypatch):
     # the eigensolves run in slices of points; a ragged split changes nothing
     monkeypatch.setattr(tlin, "EIGH_BATCH", 64)
     assert torch.equal(t_triangulate(*args, visibility=t_vis), got)
+
+
+def test_triangulate_takes_numpy():
+    """numpy x, K, R, t and visibility give what tensors give."""
+    x, _, K, R, t = _problem(8, 10)
+    x_fp = np.ascontiguousarray(x.transpose(1, 0, 2))
+    vis = _mask(x.shape[:2])
+    want = t_triangulate(*(torch.from_numpy(a) for a in (x_fp, K, R, t)),
+                         visibility=torch.from_numpy(vis))
+    got = t_triangulate(x_fp, K, R, t, visibility=vis)
+    assert torch.equal(got, want)
+
+
+def test_nan_observation_rejects_every_step_and_keeps_the_state():
+    """One unmasked NaN observation: E is NaN, every trial is rejected and
+    the state stays at its finite start, as in the JAX package."""
+    x, X0, K, R, t0 = _problem(6, 10)
+    x = x.copy()
+    x[3, 2, 0] = np.nan
+    fields = dict(scale_factor=2.0, delta_tol=1e-10, max_iter=5)
+    want = jba.bundle_adjust(*(jnp.asarray(a) for a in (x, X0, K, R, t0)), axis=AXIS,
+                             config=JLMConfig(**fields))
+    got = tba.bundle_adjust(x, X0, K, R, t0, axis=AXIS, config=LMConfig(**fields), device="cpu")
+    assert np.isnan(float(got.error)) and np.isnan(float(want.error))
+    for name in ("X", "R", "t", "K"):
+        g = getattr(got, name).numpy()
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, np.asarray(getattr(want, name)), atol=1e-9)
+    np.testing.assert_allclose(got.X.numpy(), X0, atol=1e-9)

@@ -8,7 +8,9 @@ float64 on the CPU, on the same numpy observations:
   test_torch_perspective.py, so X itself is not compared);
 - ``euclidean_reconstruction_large`` with the camera bootstrap (chunked
   BA on a point subsample, DLT re-triangulation, then chunked BA): the
-  same status, iterations and solver retries, final E to 1e-6.
+  same status, iterations and solver retries, final E to 1e-6;
+- a scene whose observations are all NaN: the calibration flags it
+  (status 2) and E is not finite, on both sides, and nothing raises.
 """
 
 import numpy as np
@@ -58,7 +60,7 @@ def test_euclidean_reconstruction_matches_jax(eig_method):
         rtol=1e-6, atol=1e-9,
     )
     assert set(timer.times) == {"perspective_self_calibration", "bundle_adjustment"}
-    assert set(got.ba_log) == {"c", "nu"}
+    assert set(got.ba_log) == {"c", "nu", "n_solver_retries"}
     assert float(got.error) < 1.2 * _floor(x)
 
 
@@ -78,3 +80,12 @@ def test_camera_bootstrap_matches_jax():
     assert set(timer.times) == {"perspective_self_calibration", "camera_bootstrap_ba",
                                 "retriangulate", "bundle_adjustment"}
     assert float(got.error) < 1.2 * _floor(x)
+
+
+def test_non_finite_scene_is_flagged_not_raised():
+    x = np.full_like(_observations(6, 10, seed=123), np.nan)
+    fields = dict(scale_factor=2.0, delta_tol=1e-8, max_iter=5)
+    want = j_pipeline(jnp.asarray(x), method="dual", config=JLMConfig(**fields))
+    got = t_pipeline(x, method="dual", config=LMConfig(**fields), device="cpu")
+    assert got.status == int(want.status) == 2
+    assert not np.isfinite(float(got.error)) and not np.isfinite(float(want.error))

@@ -3,7 +3,9 @@ float64 on the CPU, on the same numpy inputs: rotations, 3x3 and
 lower-triangular linear algebra, fourth moments and their packings, the
 rank-r factorization and the camera model. Tolerance 1e-12 (same
 formulas, float64 rounding; eigen- and singular vectors are compared
-through sign-invariant products)."""
+through sign-invariant products). Also: the batched ``eigh`` and ``svd``
+give NaN for a non-finite matrix and leave the others of its batch as
+they would be alone."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -157,3 +159,58 @@ def test_factorization_matches_jax():
     # the rank-4 truncation M S is basis-invariant
     np.testing.assert_allclose(m_t.numpy() @ s_t.numpy(), np.asarray(m_j @ s_j), atol=1e-12)
     np.testing.assert_allclose(np.abs(m_t.numpy()), np.abs(np.asarray(m_j)), atol=1e-10)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def _sym_batch_with_nan():
+    a = _rng().normal(size=(3, 4, 4))
+    a = a + a.transpose(0, 2, 1)
+    a[1, 0, 0] = np.nan
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("eigh_batch", [16384, 2], ids=["one-call", "sliced"])
+def test_eigh_isolates_non_finite_matrices(eigh_batch, monkeypatch):
+    """One NaN matrix in a batch: its eigenpairs are all NaN, the others
+    equal an eigh of each alone (torch.linalg.eigh raises for the batch)."""
+    monkeypatch.setattr(tlin, "EIGH_BATCH", eigh_batch)
+    a = _sym_batch_with_nan()
+    with pytest.raises(RuntimeError):
+        torch.linalg.eigh(a)
+    w, v = tlin.eigh(a)
+    assert torch.isnan(w[1]).all() and torch.isnan(v[1]).all()
+    for i in (0, 2):
+        wi, vi = torch.linalg.eigh(a[i])
+        np.testing.assert_allclose(w[i].numpy(), wi.numpy(), rtol=0, atol=TOL)
+        np.testing.assert_allclose(v[i].numpy(), vi.numpy(), rtol=0, atol=TOL)
+
+
+def test_svd_isolates_non_finite_matrices():
+    a = _rng().normal(size=(3, 5, 4))
+    a[1, 2, 3] = np.inf
+    a = torch.from_numpy(a)
+    u, s, vh = tlin.svd(a)
+    assert all(torch.isnan(m[1]).all() for m in (u, s, vh))
+    for i in (0, 2):
+        ui, si, vhi = torch.linalg.svd(a[i], full_matrices=False)
+        for got, want in ((u[i], ui), (s[i], si), (vh[i], vhi)):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=TOL)
+
+
+def test_pinv_and_orthonormalize_match_jax():
+    p = _rng().normal(size=(5, 3, 2))
+    p[0, :, 1] = 0.0  # rank-deficient: the cutoff drops the zero singular value
+    _close(tlin.pinv(torch.from_numpy(p)), jnp.linalg.pinv(jnp.asarray(p)))
+    r = _near_rot(6)
+    _close(tlin.orthonormalize(torch.from_numpy(r)), jlin.orthonormalize(jnp.asarray(r)))
+
+
+def test_project_points_orthographic_matches_jax():
+    X = _rng().normal(size=(20, 3))
+    R, t = _near_rot(4), _rng().normal(size=(4, 3))
+    want = jcam.project_points_orthographic(*(jnp.asarray(a) for a in (X, R, t)))
+    got = tcam.project_points_orthographic(*(torch.from_numpy(a) for a in (X, R, t)))
+    _close(got, want)

@@ -24,6 +24,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "scripts" / "profile_torch_streamed.py",
     REPO / "scripts" / "gpu_cpu_trajectory.py",
     REPO / "scripts" / "eigh_batch_limit.py",
+    REPO / "scripts" / "dense_wall.py",
 ]
 
 
@@ -48,14 +49,28 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from mvrecon_tpu_torch.models.bundle_adjustment import bundle_adjust
     from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
     from mvrecon_tpu_torch.models.perspective import perspective_self_calibration
+    from mvrecon_tpu_torch.models.affine import affine_self_calibration
     from mvrecon_tpu_torch.models.pipelines import (
+        affine_reconstruction,
         euclidean_reconstruction,
         euclidean_reconstruction_large,
+    )
+    from mvrecon_tpu_torch.parallel.batched import (
+        batched_affine_reconstruction,
+        batched_euclidean_reconstruction,
+        batched_euclidean_to_convergence,
     )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((4, 20, 2))
     start = (np.zeros((20, 3)), np.zeros((4, 3, 3)), np.zeros((4, 3, 3)), np.zeros((4, 3)))
+    for fn, args in ((affine_reconstruction, (x, np.ones(4))),
+                     (affine_self_calibration, (x, "orthographic")),
+                     (batched_affine_reconstruction, (x[None], np.ones((1, 4)))),
+                     (batched_euclidean_reconstruction, (x[None],)),
+                     (batched_euclidean_to_convergence, (x[None],))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(*args)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         euclidean_reconstruction_large(x)
     with pytest.raises(RuntimeError, match="no CUDA device"):

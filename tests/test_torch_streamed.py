@@ -227,3 +227,36 @@ def test_streamed_unported_options_raise(change):
     cfg = dataclasses.replace(lm_config_from_fields({}), **change)
     with pytest.raises(NotImplementedError):
         tbs.bundle_adjust_streamed(*prob, axis=AXIS, config=cfg, device="cpu")
+
+
+def _every_core(prob):
+    """Run one problem through the dense, chunked and streamed cores."""
+    from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
+
+    return {
+        "dense": lambda cfg: tba.bundle_adjust(*prob, axis=AXIS, config=cfg, device="cpu"),
+        "chunked": lambda cfg: bundle_adjust_chunked(*prob, axis=AXIS, config=cfg,
+                                                     chunk_size=16, device="cpu"),
+        "streamed": lambda cfg: tbs.bundle_adjust_streamed(*prob, axis=AXIS, config=cfg,
+                                                           chunk_size=16, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("spelling", ["", "none"])
+def test_plain_loss_spellings_equal_none_on_every_core(spelling):
+    """None, "" and "none" all mean plain least squares, as JAX's
+    ``resolve_robust`` has it, on each of the three cores."""
+    fields = dict(scale_factor=2.0, delta_tol=0.0, max_iter=2)
+    for core, run in _every_core(_problem(nf=6, n_slices=2)).items():
+        plain = run(lm_config_from_fields(fields))
+        spelled = run(lm_config_from_fields({**fields, "robust": spelling}))
+        assert float(spelled.error) == float(plain.error), core
+        assert spelled.n_iter == plain.n_iter, core
+
+
+def test_unknown_loss_raises_value_error_on_every_core():
+    with pytest.raises(ValueError, match="unknown robust loss"):
+        jba.resolve_robust("bogus")
+    for core, run in _every_core(_problem(nf=6, n_slices=2)).items():
+        with pytest.raises(ValueError, match="unknown robust loss"):
+            run(lm_config_from_fields({"robust": "bogus"}))
