@@ -15,10 +15,32 @@ Phases, each of which stops the script with a non-zero exit on failure:
    bound of the work;
 4. pipeline: ``euclidean_reconstruction_large`` at 100k points x 1000
    views, float32, chunk 768, counting kernel launches on that run;
+4i. robust chunked: phase 4's scene with 3 % of the observations moved by
+   +-0.3 per component (60 sigma), ``bundle_adjust_chunked`` under the
+   Huber loss (delta 0.02) from X and t perturbed by 0.02 N(0, 1), 10
+   Nielsen iterations, then the same run under the plain loss: every
+   output finite, K2 launches == robust retries x chunks, the inlier E at
+   the noise floor (< 1.5x) and the robust X's aligned RMSE below half the
+   plain run's;
+4k. covariance: ``ba_covariance_chunked`` of phase 4's result (chunk 768,
+   ``bench.py::bench_covariance``), one warm-up and one timed run: finite
+   blocks, the estimated sigma within 5 % of the true one, the pinned
+   gauge rows zero, symmetric blocks with no eigenvalue below -1e-6 of
+   their largest; its second run, after 4c, holds ``ba_covariance`` and
+   the chunked variant on phase 4c's result to 1e-3 of each other in
+   float64 and reports their float32 gap;
 4b. streamed: ``bundle_adjust_streamed`` at 1M points x 500 views from
    host memory, float32, chunk 16384, prefetch 2, counting K1 launches,
    with the time of each pass, the host-to-device rate and the peak
    device memory, which must stay below the observations' 4.0 GB;
+4l. streamed covariance: ``ba_covariance_streamed`` of phase 4b's result,
+   with both pass times; finite blocks, the peak device memory below the
+   observations' bytes;
+4j. robust streamed: phase 4b's problem with 3 % gross outliers injected
+   into the host observations a chunk at a time, ``bundle_adjust_streamed``
+   under the Huber loss for 5 iterations: K1 launches == retries x chunks,
+   the inlier E at the floor, the peak device memory below the
+   observations' bytes;
 4c. dense BA: ``bundle_adjust`` at 10k points x 100 views, float32, from
    the true K and R with X and t perturbed by 0.05 N(0, 1), one warm-up
    and one timed run of 10 iterations, with the time of its layers (the
@@ -49,14 +71,16 @@ Phases, each of which stops the script with a non-zero exit on failure:
    with prefetch 0 and 2, which must agree bit for bit, both batched
    pipelines on three small scenes on each side, and a batch whose
    second scene is all NaN, which must end flagged while the others reach
-   the floor;
+   the floor, the robust dense and chunked cores on the small scene with
+   gross outliers, and ``ba_covariance`` in float64 (to 1e-8);
 6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
-``--points``/``--ba-iters`` shrink phases 4 and 4e, ``--streamed-points``
-phase 4b, ``--dense-points`` phases 4c and 4d and ``--batched-scenes``
-phases 4f-4h for a quick run; the views and the chunks stay the main
-paths', so the kernel checks keep their shapes.
+``--points`` shrinks phases 4, 4i, 4k and 4e (``--ba-iters`` sets the BA
+iterations of 4 and 4e), ``--streamed-points`` phases 4b, 4l and 4j,
+``--dense-points`` phases 4c, 4d and 4k's second run and
+``--batched-scenes`` phases 4f-4h for a quick run; the views and the
+chunks stay the main paths', so the kernel checks keep their shapes.
 """
 
 from __future__ import annotations
@@ -104,6 +128,20 @@ FINAL_E_RTOL = 5e-3
 # points reversed: 1.6e-3 at iteration 2), so the limit holds only while
 # both devices take the same path, as they do on this start.
 CAMERA_SIDE_RTOL = 1e-4
+# Phase 4k: the dense and the chunked covariance sum the Schur complement
+# in other orders, and A's inverse amplifies the difference by A's
+# condition number (6e7-2e9 on the CPU at 20-100 views, float64); the
+# asymmetry of a block set is rounding in the solve against the identity
+# and in the lift.
+COV_DENSE_CHUNKED_RTOL = 1e-3
+COV_ASYMMETRY_RTOL = 1e-3
+# Phases 4i and 4j: 3 % of the observations become gross outliers, each
+# component moved by +-0.3 (60 sigma, tests/test_robust_ba.py), and BA runs
+# under the Huber loss at bench.py's scale (robust="huber", huber_delta=0.02)
+OUTLIER_SHARE = 0.03
+OUTLIER_SHIFT = 0.3
+HUBER_DELTA = 0.02
+ROBUST_ITERS = 10  # phase 4i's iterations, robust and plain
 K2_DESIGN = ("bf16 wgmma m64n128k16, both operands MN-major from a 4-stage TMA ring of "
              "64-row stages; persistent blocks; the two consumer warpgroups take turns; "
              "old acc prefetched by TMA")
@@ -240,15 +278,64 @@ def check_syrk_lower(torch, sy, k_rows: int, n: int, reps: int, seed: int,
     return rec
 
 
-def perturbed_start(scene, seed: int, sigma: float = 0.02):
-    """Host numpy (x (P, F, 2), X0, K, R, t0): the true K and R, X and t
-    perturbed by sigma N(0, 1) from a seeded generator."""
+def perturbed_cameras(scene, seed: int, sigma: float = 0.02):
+    """Host numpy (X0, K, R, t0): the true K and R, X and t perturbed by
+    sigma N(0, 1) from a seeded generator."""
     rng = np.random.default_rng(seed)
     X, K, R, t = (a.cpu().numpy() for a in (scene.X, scene.K, scene.R, scene.t))
-    x = scene.x.transpose(0, 1).contiguous().cpu().numpy()
     X0 = (X + sigma * rng.standard_normal(X.shape)).astype(X.dtype)
     t0 = (t + sigma * rng.standard_normal(t.shape)).astype(t.dtype)
-    return x, X0, K, R, t0
+    return X0, K, R, t0
+
+
+def perturbed_start(scene, seed: int, sigma: float = 0.02):
+    """Host numpy (x (P, F, 2), X0, K, R, t0): ``perturbed_cameras`` with
+    the observations."""
+    x = scene.x.transpose(0, 1).contiguous().cpu().numpy()
+    return (x,) + perturbed_cameras(scene, seed, sigma)
+
+
+def with_outliers(torch, x, gen):
+    """Move ``OUTLIER_SHARE`` of the observations x (..., 2) by
+    +-``OUTLIER_SHIFT`` per component, in place, from the generator ``gen``
+    on x's device. Returns the inlier mask (...)."""
+    outlier = torch.rand(x.shape[:-1], generator=gen, device=x.device) < OUTLIER_SHARE
+    sign = torch.randint(0, 2, x.shape, generator=gen, device=x.device).to(x.dtype) * 2.0 - 1.0
+    x.add_(outlier[..., None] * sign * OUTLIER_SHIFT)
+    return ~outlier
+
+
+def host_outliers(torch, x_host, gen, chunk: int):
+    """``with_outliers`` on host observations (P, F, 2), one point chunk at
+    a time through the card, so no (P, F) float array is ever formed on the
+    host. Returns the host inlier mask (P, F)."""
+    inlier = np.empty(x_host.shape[:2], dtype=bool)
+    for lo in range(0, x_host.shape[0], chunk):
+        x_c = torch.from_numpy(x_host[lo:lo + chunk]).cuda()
+        inlier[lo:lo + chunk] = with_outliers(torch, x_c, gen).cpu().numpy()
+        x_host[lo:lo + chunk] = x_c.cpu().numpy()
+    return inlier
+
+
+def inlier_error(torch, res, x, inlier, chunk: int) -> tuple[float, int]:
+    """(E over the inlier observations at the state of ``res``, their
+    count), f0 = 1: x (P, F, 2) and inlier (P, F), on the host or the card,
+    taken a point chunk at a time on the card."""
+    from mvrecon_tpu_torch.models.bundle_adjustment import calc_pqr
+
+    e, n = 0.0, 0
+    for lo in range(0, x.shape[0], chunk):
+        x_c = torch.as_tensor(x[lo:lo + chunk], device="cuda")
+        keep = torch.as_tensor(inlier[lo:lo + chunk], device="cuda")
+        _, p, q, r = calc_pqr(res.X[lo:lo + chunk], res.K, res.R, res.t)
+        e_c = (p / r - x_c[..., 0]) ** 2 + (q / r - x_c[..., 1]) ** 2
+        e += float(torch.sum(torch.where(keep, e_c, 0.0), dtype=torch.float64))
+        n += int(keep.sum())
+    return e, n
+
+
+def finite(torch, *tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
 
 
 def north_star_scenes(torch, make_synthetic_scene, points: int):
@@ -530,6 +617,321 @@ def check_affine(rec: dict) -> None:
     check(rec["launches"] == (0, 0), f"batched affine launched the SYRK kernels {rec['launches']}")
 
 
+def robust_chunked(torch, fs, sy, scene, config) -> int:
+    """Phase 4i: the chunked BA under the Huber loss at phase 4's width,
+    from ``perturbed_start`` (sigma 0.02) with 3 % gross outliers, then the
+    same run under the plain loss. Returns the robust run's K2 launches."""
+    from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
+    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
+
+    x = scene.x.transpose(0, 1).contiguous()  # (P, F, 2) on the card
+    inlier = with_outliers(torch, x, torch.Generator(device="cuda").manual_seed(21))
+    start = perturbed_cameras(scene, seed=21)
+    n_points = x.shape[0]
+    n_chunks = math.ceil(n_points / CHUNK)
+    plain_cfg = dataclasses.replace(config, max_iter=ROBUST_ITERS)
+    runs = {}
+    for name, cfg in (("robust", dataclasses.replace(plain_cfg, robust="huber",
+                                                     huber_delta=HUBER_DELTA)),
+                      ("plain", plain_cfg)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts(fs, sy)
+        t0 = time.perf_counter()
+        res = bundle_adjust_chunked(x, *start, axis="x-up_z-forward", config=cfg,
+                                    chunk_size=CHUNK)
+        err = float(res.error)
+        wall = time.perf_counter() - t0
+        launches = launch_counts(fs, sy)
+        peak = torch.cuda.max_memory_allocated()
+        e_in, n_in = inlier_error(torch, res, x, inlier, 8192)
+        runs[name] = {
+            "wall_s": wall, "n_iter": res.n_iter, "retries": res.log["n_solver_retries"],
+            "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+            "E" if name == "plain" else "weighted_E": err,
+            "inlier_E": e_in, "inlier_E_vs_noise_floor": e_in / (n_in * 2 * NOISE**2),
+            "aligned_rmse_X": float(aligned_rmse(res.X, scene.X)),
+            "max_memory_allocated_gb": peak / 1e9,
+            "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+        }
+        del res
+    rec = {"points": n_points, "views": x.shape[1], "chunk": CHUNK, "chunks": n_chunks,
+           "ba_iters": ROBUST_ITERS, "outliers": int((~inlier).sum()),
+           "outlier_share": OUTLIER_SHARE, "outlier_shift": OUTLIER_SHIFT,
+           "huber_delta": HUBER_DELTA, **runs}
+    print("robust_chunked " + json.dumps(rec), flush=True)
+    del x, inlier
+    r, p = runs["robust"], runs["plain"]
+    check(r["finite"] and p["finite"], "robust chunked: an output is not finite")
+    check(r["syrk_acc_launches"] == r["retries"] * n_chunks > 0,
+          f"robust chunked: syrk_acc launches {r['syrk_acc_launches']} != retries "
+          f"{r['retries']} x chunks {n_chunks}")
+    check(r["inlier_E_vs_noise_floor"] < 1.5,
+          f"robust chunked: inlier E / floor {r['inlier_E_vs_noise_floor']:.4f}")
+    check(r["aligned_rmse_X"] < 0.5 * p["aligned_rmse_X"],
+          f"robust chunked: aligned RMSE {r['aligned_rmse_X']:.4g} is not below half the "
+          f"plain run's {p['aligned_rmse_X']:.4g}")
+    return r["syrk_acc_launches"]
+
+
+def point_sigma(torch, cov):
+    """Per-point position sigma sqrt(trace / 3), as bench.py reports it."""
+    return torch.sqrt(torch.diagonal(cov.point_cov, dim1=-2, dim2=-1).sum(-1) / 3.0)
+
+
+def block_checks(torch, blocks) -> dict:
+    """Asymmetry of (N, n, n) covariance blocks relative to their largest
+    entry, and each block's smallest eigenvalue over its largest (the worst
+    of all blocks)."""
+    from mvrecon_tpu_torch.ops.linalg import eigh
+
+    asym = float((blocks - blocks.transpose(-1, -2)).abs().max() / blocks.abs().max())
+    w, _ = eigh(0.5 * (blocks + blocks.transpose(-1, -2)))
+    return {"asymmetry_rel": asym,
+            "min_eig_over_max": float((w[..., 0] / w[..., -1].clamp_min(1e-30)).min())}
+
+
+def check_blocks(name: str, rec: dict) -> None:
+    for kind in ("point", "camera"):
+        c = rec[f"{kind}_blocks"]
+        check(c["asymmetry_rel"] < COV_ASYMMETRY_RTOL,
+              f"{name}: {kind} blocks asymmetric by {c['asymmetry_rel']:.3e}")
+        check(c["min_eig_over_max"] >= -1e-6,
+              f"{name}: {kind} block eigenvalue ratio {c['min_eig_over_max']:.3e} < -1e-6")
+
+
+def covariance_chunked(torch, x_pf, res) -> None:
+    """Phase 4k: ``ba_covariance_chunked`` on phase 4's result, as
+    ``bench.py::bench_covariance`` configures it, one warm-up and one timed
+    run."""
+    from mvrecon_tpu_torch.models.covariance import ba_covariance_chunked
+
+    def run():
+        return ba_covariance_chunked(x_pf, res.X, res.K, res.R, res.t, f0=1.0,
+                                     axis="x-up_z-forward", chunk_size=CHUNK)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    cov = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    sig = point_sigma(torch, cov)
+    cam0 = cov.camera_cov[0]
+    # camera 1's translation variance along the pinned baseline direction
+    # (x-up: column 1 of camera 0's rotation)
+    d = res.R[0][:, 1]
+    t1 = cov.camera_cov[1, 3:6, 3:6]
+    rec = {
+        "points": x_pf.shape[0], "views": x_pf.shape[1], "chunk": CHUNK, "wall_s": wall,
+        "sigma": math.sqrt(float(cov.sigma2)), "sigma_true": NOISE,
+        "n_obs": int(cov.n_obs), "error": float(cov.error),
+        "point_sigma_median": float(sig.median()), "point_sigma_max": float(sig.max()),
+        "finite": finite(torch, cov.point_cov, cov.camera_cov, cov.sigma2),
+        "camera0_pinned_max_abs": float(torch.cat([cam0[3:9].flatten(),
+                                                   cam0[:, 3:9].flatten()]).abs().max()),
+        "camera1_baseline_var_rel": float(d @ t1 @ d / torch.trace(t1)),
+        "max_memory_allocated_gb": peak / 1e9,
+        "point_blocks": block_checks(torch, cov.point_cov),
+        "camera_blocks": block_checks(torch, cov.camera_cov),
+    }
+    print("covariance " + json.dumps(rec), flush=True)
+    check(rec["finite"], "covariance: a block is not finite")
+    check(abs(rec["sigma"] / NOISE - 1.0) < 0.05,
+          f"covariance: sigma {rec['sigma']:.6g} against the true {NOISE}")
+    check(rec["camera0_pinned_max_abs"] == 0.0, "covariance: camera 0's pinned rows are not zero")
+    check(abs(rec["camera1_baseline_var_rel"]) < 1e-5,
+          f"covariance: camera 1's pinned baseline variance {rec['camera1_baseline_var_rel']:.3e}")
+    check_blocks("covariance", rec)
+
+
+def covariance_dense_vs_chunked(torch, x, state) -> None:
+    """Phase 4k, second run: ``ba_covariance`` against
+    ``ba_covariance_chunked`` on phase 4c's result. The two paths are held
+    to ``COV_DENSE_CHUNKED_RTOL`` in float64. float32 is reported beside
+    it and not checked: the undamped A's condition number (about 6e7 at
+    this shape, above 1 / eps of float32) leaves each path several percent
+    from float64 on the CPU, and its float32 Cholesky factor can fail,
+    which gives NaN blocks (ROADMAP F10)."""
+    from mvrecon_tpu_torch.models.covariance import ba_covariance, ba_covariance_chunked
+
+    kw = dict(f0=1.0, axis="x-up_z-forward")
+    rec = {"points": x.shape[0], "views": x.shape[1], "chunk": CHUNK,
+           "rtol_float64": COV_DENSE_CHUNKED_RTOL}
+    covs = {}
+    for name, dt in (("float64", torch.float64), ("float32", torch.float32)):
+        args = [a.to(dt) for a in (x, *state)]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        dense = ba_covariance(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        chunked = ba_covariance_chunked(*args, chunk_size=CHUNK, **kw)
+        covs[name] = dense
+        rec[name] = {"dense_wall_s": wall, "sigma": math.sqrt(float(dense.sigma2)),
+                     "dense_finite": finite(torch, dense.point_cov, dense.camera_cov),
+                     "chunked_finite": finite(torch, chunked.point_cov, chunked.camera_cov)}
+        for k in ("point_cov", "camera_cov"):
+            a, b = getattr(chunked, k), getattr(dense, k)
+            rec[name][f"{k}_rel_diff"] = float((a - b).abs().max() / b.abs().max())
+    for k in ("point_cov", "camera_cov"):
+        a, b = getattr(covs["float32"], k).double(), getattr(covs["float64"], k)
+        rec["float32"][f"dense_{k}_vs_float64"] = float((a - b).abs().max() / b.abs().max())
+    print("covariance_dense " + json.dumps(rec), flush=True)
+    check(rec["float64"]["dense_finite"] and rec["float64"]["chunked_finite"],
+          "dense vs chunked covariance (float64): a block is not finite")
+    for k in ("point_cov", "camera_cov"):
+        diff = rec["float64"][f"{k}_rel_diff"]
+        check(diff < COV_DENSE_CHUNKED_RTOL,
+              f"dense vs chunked covariance (float64): {k} differs by {diff:.3e}")
+
+
+def covariance_streamed(torch, x_host, state, full: bool) -> None:
+    """Phase 4l: ``ba_covariance_streamed`` on phase 4b's result, the
+    observations in host memory."""
+    from mvrecon_tpu_torch.models.covariance import ba_covariance_streamed
+    from mvrecon_tpu_torch.runtime.profiling import EventTimer
+
+    timer = EventTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    cov = ba_covariance_streamed(x_host, *state, f0=1.0, axis="x-up_z-forward", timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    spans = timer.ms()
+    sig = point_sigma(torch, cov)
+    rec = {
+        "points": x_host.shape[0], "views": x_host.shape[1], "chunk": 4096, "wall_s": wall,
+        "pass1_ms": spans["pass1"], "pass2_ms": spans["pass2"],
+        "sigma": math.sqrt(float(cov.sigma2)), "n_obs": int(cov.n_obs),
+        "point_sigma_median": float(sig.median()), "point_sigma_max": float(sig.max()),
+        "finite": finite(torch, cov.point_cov, cov.camera_cov, cov.sigma2),
+        "max_memory_allocated_gb": peak / 1e9, "observations_gb": x_host.nbytes / 1e9,
+    }
+    print("covariance_streamed " + json.dumps(rec), flush=True)
+    check(rec["finite"], "streamed covariance: a block is not finite")
+    if full:  # the per-chunk peak does not scale with P: the design point's check
+        check(peak < x_host.nbytes, f"streamed covariance peak device memory {peak / 1e9:.2f} "
+              f"GB is not below the observations' {x_host.nbytes / 1e9:.2f} GB")
+
+
+def robust_streamed(torch, sy, x_host, start_cams, s_cfg, full: bool) -> int:
+    """Phase 4j: the streamed BA under the Huber loss on phase 4b's problem
+    with 3 % gross outliers, injected into the host observations in place.
+    Returns its K1 launches."""
+    from mvrecon_tpu_torch.models.bundle_adjustment_streamed import bundle_adjust_streamed
+    from mvrecon_tpu_torch.runtime.profiling import EventTimer
+
+    inlier = host_outliers(torch, x_host, torch.Generator(device="cuda").manual_seed(22),
+                           STREAMED_CHUNK)
+    cfg = dataclasses.replace(s_cfg, robust="huber", huber_delta=HUBER_DELTA)
+    timer = EventTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sy.reset_launch_counts()
+    start = time.perf_counter()
+    res = bundle_adjust_streamed(x_host, *start_cams, axis="x-up_z-forward", config=cfg,
+                                 chunk_size=STREAMED_CHUNK, prefetch=2, timer=timer)
+    err = float(res.error)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    k1_launches = sy.launch_counts["syrk_lower"]
+    peak = torch.cuda.max_memory_allocated()
+    spans = timer.ms()
+    retries = res.log["n_solver_retries"]
+    chunks = math.ceil(x_host.shape[0] / STREAMED_CHUNK)
+    e_in, n_in = inlier_error(torch, res, x_host, inlier, STREAMED_CHUNK)
+    rec = {
+        "points": x_host.shape[0], "views": x_host.shape[1], "chunk": STREAMED_CHUNK,
+        "chunks": chunks, "wall_s": wall, "n_iter": res.n_iter, "retries": retries,
+        "pass1_ms": spans["pass1"], "pass2_ms": spans["pass2"],
+        "syrk_lower_launches": k1_launches, "outliers": int(inlier.size - inlier.sum()),
+        "huber_delta": HUBER_DELTA, "weighted_E": err, "inlier_E": e_in,
+        "inlier_E_vs_noise_floor": e_in / (n_in * 2 * NOISE**2),
+        "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+        "max_memory_allocated_gb": peak / 1e9, "observations_gb": x_host.nbytes / 1e9,
+    }
+    print("robust_streamed " + json.dumps(rec), flush=True)
+    check(rec["finite"], "robust streamed: an output is not finite")
+    check(k1_launches == retries * chunks > 0,
+          f"robust streamed: syrk_lower launches {k1_launches} != retries {retries} x chunks "
+          f"{chunks}")
+    check(rec["inlier_E_vs_noise_floor"] < 1.5,
+          f"robust streamed: inlier E / floor {rec['inlier_E_vs_noise_floor']:.4f}")
+    if full:
+        check(peak < x_host.nbytes, f"robust streamed peak device memory {peak / 1e9:.2f} GB "
+              f"is not below the observations' {x_host.nbytes / 1e9:.2f} GB")
+    return k1_launches
+
+
+def robust_gpu_vs_cpu(torch, fs, sy, small, small_cfg) -> None:
+    """Phase 5, robust: the dense and chunked cores under the Huber loss on
+    the small scene with 3 % gross outliers, card against CPU; then
+    ``ba_covariance`` in float64, card against CPU."""
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
+    from mvrecon_tpu_torch.models.covariance import ba_covariance
+
+    x = small.x.transpose(0, 1).contiguous()
+    with_outliers(torch, x, torch.Generator().manual_seed(23))
+    start = (x,) + perturbed_cameras(small, seed=5)
+    cfg = dataclasses.replace(small_cfg, robust="huber", huber_delta=HUBER_DELTA)
+    cores = {
+        "dense": lambda dev: tba.bundle_adjust(*start, axis="x-up_z-forward", config=cfg,
+                                               device=dev),
+        "chunked": lambda dev: bundle_adjust_chunked(*start, axis="x-up_z-forward", config=cfg,
+                                                     chunk_size=128, device=dev),
+    }
+    rec = {}
+    for core, run in cores.items():
+        reset_launch_counts(fs, sy)
+        r_g = run("cuda")
+        launches = launch_counts(fs, sy)
+        r_c = run("cpu")
+        e_g, e_c = (r.log["reprojection_error"].cpu().double() for r in (r_g, r_c))
+        n = r_c.n_iter
+        rec[core] = {
+            "n_iter_gpu": r_g.n_iter, "n_iter_cpu": n, "launches_gpu": launches,
+            "E_gpu": e_g[1:n + 1].tolist(), "E_cpu": e_c[1:n + 1].tolist(),
+            "E_rel_diff_iters_1_2": ((e_g[1:3] - e_c[1:3]).abs() / e_c[1:3]).tolist(),
+            "E_rel_diff_final": abs(float(r_g.error) - float(r_c.error)) / float(r_c.error),
+            "early_rtol": EARLY_ITER_RTOL, "final_rtol": FINAL_E_RTOL,
+        }
+
+    sc = make_synthetic_scene(torch.Generator().manual_seed(7), n_images=12, n_slices=5,
+                              n_angles=20, dtype=torch.float64)
+    x64, *cams = perturbed_start(sc, seed=7)
+    ba = tba.bundle_adjust(x64, *cams, axis="x-up_z-forward", device="cpu",
+                           config=LMConfig(scale_factor=2.0, delta_tol=1e-12, max_iter=20))
+    for name, c_cfg in (("plain", LMConfig()),
+                        ("huber", LMConfig(robust="huber", huber_delta=NOISE))):
+        covs = [ba_covariance(x64, ba.X, ba.K, ba.R, ba.t, axis="x-up_z-forward",
+                              config=c_cfg, device=dev) for dev in ("cuda", "cpu")]
+        rec[f"covariance_float64_{name}"] = {
+            k: float((getattr(covs[0], k).cpu() - getattr(covs[1], k)).abs().max()
+                     / getattr(covs[1], k).abs().max())
+            for k in ("point_cov", "camera_cov", "sigma2")}
+    print("robust_gpu_vs_cpu " + json.dumps(rec), flush=True)
+    for core in cores:
+        r = rec[core]
+        check(r["n_iter_gpu"] == r["n_iter_cpu"], f"robust {core}: iterations differ")
+        check(max(r["E_rel_diff_iters_1_2"]) < EARLY_ITER_RTOL,
+              f"robust {core}: E after iterations 1-2 differs by {r['E_rel_diff_iters_1_2']}")
+        check(r["E_rel_diff_final"] < FINAL_E_RTOL,
+              f"robust {core}: final E differs by {r['E_rel_diff_final']:.3e}")
+    check(rec["chunked"]["launches_gpu"][0] > 0, "robust chunked on the card did not launch K2")
+    for name in ("plain", "huber"):
+        diffs = rec[f"covariance_float64_{name}"]
+        check(max(diffs.values()) < 1e-8,
+              f"float64 covariance ({name}), card against CPU, differs by {diffs}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--points", type=int, default=100_000)
@@ -627,12 +1029,17 @@ def main() -> int:
     if args.points < 100_000:
         print(f"pipeline cut to {n_points} points x {VIEWS} views by arguments")
     print("pipeline " + json.dumps(pipe), flush=True)
-    del scene, res
     check(math.isfinite(err), "pipeline E is not finite")
     check(pipe["status"] == 0, f"calibration status {pipe['status']}")
     check(pipe["E_vs_noise_floor"] < 1.5, f"E / noise floor {pipe['E_vs_noise_floor']:.3f}")
     check(launches == retries * n_chunks > 0,
           f"syrk_acc launches {launches} != retries {retries} x chunks {n_chunks}")
+
+    # 4i. the chunked BA under the Huber loss on phase 4's scene with 3 %
+    # gross outliers; 4k. the covariance of phase 4's result
+    k2_robust = robust_chunked(torch, fs, sy, scene, config)
+    covariance_chunked(torch, scene.x.transpose(0, 1), res)
+    del scene, res
 
     # 4b. the host-streamed BA at full width: 1M points x 500 views, the
     # (P, F, 2) observations in host memory
@@ -679,7 +1086,6 @@ def main() -> int:
         print(f"streamed BA cut to {n_points} points x {STREAMED_VIEWS} views by arguments")
     print("streamed " + json.dumps(streamed), flush=True)
     x_nbytes = x_host.nbytes
-    del s_res, x_host, X0
     check(math.isfinite(s_err), "streamed E is not finite")
     check(streamed["E_vs_noise_floor"] < 1.5,
           f"streamed E / noise floor {streamed['E_vs_noise_floor']:.3f}")
@@ -689,6 +1095,15 @@ def main() -> int:
     if args.streamed_points >= 1_000_000:
         check(s_peak < x_nbytes, f"streamed peak device memory {s_peak / 1e9:.2f} GB is not "
               f"below the observations' {x_nbytes / 1e9:.2f} GB")
+
+    # 4l. the streamed covariance of phase 4b's result; 4j. the streamed BA
+    # under the Huber loss, after gross outliers are injected into the same
+    # host observations
+    full_streamed = args.streamed_points >= 1_000_000
+    covariance_streamed(torch, x_host, (s_res.X, s_res.K, s_res.R, s_res.t), full_streamed)
+    del s_res
+    k1_robust = robust_streamed(torch, sy, x_host, (X0, K0, R0, t0), s_cfg, full_streamed)
+    del x_host, X0
 
     # 4c. dense BA at the headline's width: 10k points x 100 views, from
     # the true K and R with X and t perturbed by 0.05 N(0, 1)
@@ -710,6 +1125,7 @@ def main() -> int:
     d_wall = time.perf_counter() - start
     d_launches = launch_counts(fs, sy)
     d_e0 = float(d_res.log["reprojection_error"][0])
+    d_state = (d_res.X, d_res.K, d_res.R, d_res.t)
     dense = {
         "points": n_points, "views": DENSE_VIEWS, "ba_iters": d_cfg.max_iter, "wall_s": d_wall,
         "n_iter": d_res.n_iter, "start_E": d_e0, "reprojection_error": d_err,
@@ -732,6 +1148,8 @@ def main() -> int:
     check(d_err < d_e0, f"dense BA E {d_err:.6g} is not below its start {d_e0:.6g}")
     check(d_launches == (0, 0), f"dense BA launched the SYRK kernels {d_launches}")
     check(dense["camera_side_layers"]["side"] == "camera", "the camera-side problem is not")
+    covariance_dense_vs_chunked(torch, d_start[0], d_state)  # 4k, second run
+    del d_state
 
     # 4d. the dense pipeline on the same observations
     reset_launch_counts(fs, sy)
@@ -904,6 +1322,7 @@ def main() -> int:
     check(dense_small["launches_gpu"] == (0, 0), "the small dense runs launched a SYRK kernel")
 
     batched_gpu_vs_cpu(torch, fs, sy, d_cfg)
+    robust_gpu_vs_cpu(torch, fs, sy, small, small_cfg)
 
     # 6. result lines
     kernels = [{
@@ -911,6 +1330,7 @@ def main() -> int:
         "replaces": "mvrecon_tpu/ops/pallas_schur.py:95",
         "launches": launches, "launches_dense_ba": d_launches[0],
         "launches_dense_pipeline": p_launches[0], "launches_bootstrap_pipeline": b_launches,
+        "launches_robust_chunked": k2_robust,
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
@@ -920,7 +1340,8 @@ def main() -> int:
         "name": "syrk_lower", "route": "cuda", "source": "mvrecon_tpu_torch/csrc/syrk_lower.cu",
         "replaces": "mvrecon_tpu/ops/pallas_syrk.py:42",
         "launches": k1_launches, "launches_dense_ba": d_launches[1],
-        "launches_dense_pipeline": p_launches[1], "max_abs_err": k1["max_abs_err"],
+        "launches_dense_pipeline": p_launches[1], "launches_robust_streamed": k1_robust,
+        "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"], "simt_bound_ms": k1["simt_bound_ms"],

@@ -59,10 +59,11 @@ def as_tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """Levenberg–Marquardt hyperparameters (fields and defaults of the JAX
-    package's ``LMConfig``; see there for what each one does). The port's
-    chunked core implements plain least squares without distortion, so
-    ``robust`` and ``distortion_rounds`` other than their defaults raise
-    there."""
+    package's ``LMConfig``; see there for what each one does). Every BA
+    core of the port takes the robust losses (``robust``: None, "huber",
+    "cauchy", "soft_l1" or "arctan", at scale ``huber_delta``); the
+    distortion models are not ported yet, so ``distortion_rounds`` other
+    than 0 raises."""
 
     scale_factor: float = 10.0
     delta_tol: float = 1e-8

@@ -22,8 +22,11 @@ damping, as ``cho_factor``'s NaNs do there. Every sum over points is a
 contraction inside one ``einsum`` or matrix product, so no (P, F, 9, 9)
 block is ever formed.
 
-Robust losses, distortion models, the sharded (``axis_name``) variant and
-the ``solver`` hook are not ported yet and raise ``NotImplementedError``.
+Robust losses (``LMConfig.robust``: huber, cauchy, soft_l1, arctan) run as
+IRLS: each outer iteration reweights every observation from its current
+residual, per lane. Distortion models, the sharded (``axis_name``) variant
+and the ``solver`` hook are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -176,13 +179,16 @@ def _camera_param_derivs(state: BAState, p: torch.Tensor, q: torch.Tensor, r: to
             stack(zeros, zeros, zeros, drdt_f))
 
 
-def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float):
+def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float, huber_delta=None,
+                   robust_kind: str = "huber"):
     """Rank-2 Jacobian factors for a set of points (all of them, or one
     chunk): every second-derivative block is 2 * vis * (a1 (x) b1 +
     a2 (x) b2), so downstream stages work from (a1, a2 (..., C, F, 3);
     b1, b2 (..., C, F, 9); residuals) without materializing the blocks they
-    don't need. Undistorted model, plain least squares. Returns (a1, a2,
-    b1, b2, res_p, res_q, vis_c)."""
+    don't need. Undistorted model. With ``huber_delta`` the IRLS weights of
+    ``robust_kind`` at these residuals multiply into the returned effective
+    visibility, which is then (..., C, F). Returns (a1, a2, b1, b2, res_p,
+    res_q, vis_c)."""
     st = state_cam._replace(X=X_c)
     K = build_K(st.f, st.u, f0)
     pmat, p, q, r = calc_pqr(X_c, K, st.R, st.t)
@@ -204,6 +210,8 @@ def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float):
     del dpdc
     b2 = dqdc.mul_(r_).sub_(q_ * drdc).mul_(inv_r2)
     del dqdc, drdc
+    if huber_delta is not None:
+        vis_c = vis_c * robust_weight(torch.sqrt(res_p**2 + res_q**2), huber_delta, robust_kind)
     return a1, a2, b1, b2, res_p, res_q, vis_c
 
 
@@ -222,17 +230,20 @@ def _point_grad_and_block(a1, a2, res_p, res_q, vis_c):
     return d_P, matE
 
 
-def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float):
+def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float, huber_delta=None,
+                  robust_kind: str = "huber"):
     """Derivative blocks for a set of C points: d_P (..., C, 3), the masked
     d_F (..., 9F), matE (..., C, 3, 3), matF (..., C, 3, 9F) with unmasked
-    columns, matG (..., F, 9, 9) and the error of these points.
+    columns, matG (..., F, 9, 9) and the error of these points, all
+    IRLS-weighted with ``huber_delta`` (:func:`_chunk_factors`).
 
     Each sum over points is written as a contraction over the point axis
     (a batched product over cameras), and matF is written once in place,
     so no (C, F, 9, 9) or per-term (C, 3, F, 9) temporary exists."""
     nf = state_cam.f.shape[-1]
     lead = X_c.shape[:-1]  # (..., C)
-    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(state_cam, X_c, x_c, vis_c, f0)
+    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(state_cam, X_c, x_c, vis_c, f0,
+                                                         huber_delta, robust_kind)
     vis_d = vis_c.expand(res_p.shape)
     e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2), dim=(-2, -1))
 
@@ -267,7 +278,8 @@ class _Derivs(NamedTuple):
 def _compute_derivs(state: BAState, x, vis, free, f0: float):
     """All first and second derivative blocks for one outer LM iteration.
     Returns (derivs, current E). vis is (..., P, F), or a (P, 1) column
-    that broadcasts."""
+    that broadcasts; under a robust loss it carries the IRLS weights
+    (:func:`_huber_weights`), and E is the weighted one."""
     d_P, d_F, matE, matF, matG, e_now = _chunk_blocks(state, state.X, x, vis, free, f0)
     return _Derivs(d_P=d_P, d_F=d_F, matE=matE, matF=matF.mul_(free), matG=matG), e_now
 
@@ -413,21 +425,57 @@ def _state_error(state: BAState, x, vis, f0: float) -> torch.Tensor:
 ROBUST_LOSSES = ("huber", "cauchy", "soft_l1", "arctan")
 
 
+def resolve_robust(robust: str | None) -> str | None:
+    """Normalize ``LMConfig.robust``: None, "" and "none" mean plain least
+    squares (None); any other value must name a loss of ``ROBUST_LOSSES``,
+    else ``ValueError``."""
+    if robust in (None, "", "none"):
+        return None
+    if robust not in ROBUST_LOSSES:
+        raise ValueError(f"unknown robust loss: {robust!r} (use {ROBUST_LOSSES} or None)")
+    return robust
+
+
+def robust_weight(mag: torch.Tensor, delta: float, kind: str = "huber") -> torch.Tensor:
+    """IRLS weight w = rho'(s) at s = mag^2 for the robust losses (the ceres
+    LossFunction family; delta is the scale in residual-magnitude units):
+
+    - huber:   min(1, delta / |r|), a quadratic core with a linear tail;
+    - cauchy:  1 / (1 + s / delta^2);
+    - soft_l1: 1 / sqrt(1 + s / delta^2), the smooth pseudo-Huber;
+    - arctan:  1 / (1 + (s / delta^2)^2), hard redescending.
+    """
+    if kind == "huber":
+        return torch.clamp_max(delta / torch.clamp_min(mag, 1e-12), 1.0)
+    s_rel = (mag / delta) ** 2
+    if kind == "cauchy":
+        return 1.0 / (1.0 + s_rel)
+    if kind == "soft_l1":
+        return 1.0 / torch.sqrt(1.0 + s_rel)
+    if kind == "arctan":
+        return 1.0 / (1.0 + s_rel * s_rel)
+    raise ValueError(f"unknown robust loss: {kind!r} (use {ROBUST_LOSSES})")
+
+
+def _huber_weights(state: BAState, x, vis, f0: float, delta: float,
+                   robust_kind: str = "huber") -> torch.Tensor:
+    """vis times the IRLS weights of ``robust_kind`` at the current
+    residuals, (..., P, F): multiplied into the visibility, gross outliers
+    stop dominating the normal equations."""
+    res_p, res_q = _residuals(state, x, vis, f0)
+    return vis * robust_weight(torch.sqrt(res_p**2 + res_q**2), delta, robust_kind)
+
+
 def _check_ported(config: LMConfig, axis_name=None, dist=None, solver=None) -> None:
-    """Raise for the options whose code is not ported yet. None, "" and
-    "none" all mean plain least squares; an unknown loss name raises
-    ``ValueError``, as the JAX package's ``resolve_robust`` does."""
+    """Raise for the options whose code is not ported yet, and
+    ``ValueError`` for an unknown loss name (``resolve_robust``)."""
     if axis_name is not None:
         raise NotImplementedError("the sharded cores are not ported yet")
     if solver is not None:
         raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet")
     if dist is not None or config.distortion_rounds > 0:
         raise NotImplementedError("distortion models are not ported yet")
-    if config.robust in (None, "", "none"):
-        return
-    if config.robust not in ROBUST_LOSSES:
-        raise ValueError(f"unknown robust loss: {config.robust!r} (use {ROBUST_LOSSES} or None)")
-    raise NotImplementedError("robust losses are not ported yet")
+    resolve_robust(config.robust)
 
 
 def lm_step(x, state: BAState, vis, free, f0: float, c):
@@ -486,6 +534,13 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
     the retries. One host read per retry asks whether any lane is still
     retrying and whether any will iterate again.
 
+    Under a robust loss (IRLS) each outer iteration first reweights every
+    observation of every lane from its current residuals
+    (:func:`_huber_weights`); the blocks, the baseline E, every trial
+    error of the retries, the accept test and the ``delta_tol`` test all
+    use those weights, so the E carried and returned is the weighted one
+    of the lane's last iteration, as in the JAX ``lm_optimize``.
+
     Where the JAX loop would run a lane whose E is NaN to ``max_iter``
     (``NaN <= delta_tol`` is false), this one stops it after its first
     iteration, which accepts nothing; a finite lane runs the same
@@ -493,6 +548,7 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
     dt, dev = x.dtype, x.device
     lanes = state0.f.shape[:-1]
     nielsen = config.damping == "nielsen"
+    robust_kind = resolve_robust(config.robust)
     state = state0
     e_prev = _state_error(state0, x, vis, f0)
     run = torch.ones(lanes, dtype=torch.bool, device=dev)  # lanes still iterating
@@ -502,18 +558,23 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
     n_iter = torch.zeros(lanes, dtype=torch.int64, device=dev)
     count = retries = 0
     while count < config.max_iter:
-        derivs, _ = _compute_derivs(state, x, vis, free, f0)
+        vis_it = vis
+        if robust_kind is not None:
+            vis_it = _huber_weights(state, x, vis, f0, config.huber_delta, robust_kind)
+        derivs, e_w = _compute_derivs(state, x, vis_it, free, f0)
+        # the accept and stop baseline: the E under this iteration's weights
+        e_base = e_prev if robust_kind is None else keep(run, e_w, e_prev)
         accepted = ~run  # finished lanes take no trial
-        trial, e_trial = state, e_prev
+        trial, e_trial = state, e_base
         run_next, iterating = torch.zeros_like(run), False  # no retry: every lane stops
         for _ in range(config.max_inner_retries):
             retry = ~accepted
             delta_xi, delta_x = _damped_solve(derivs, c, free)
             cand = _apply_update(state, delta_xi, delta_x)
-            e_cand = _state_error(cand, x, vis, f0)
-            acc_t = e_cand <= e_prev
+            e_cand = _state_error(cand, x, vis_it, f0)
+            acc_t = e_cand <= e_base
             pred = _predicted_reduction(derivs, delta_xi, delta_x, c) if nielsen else None
-            c, nu = keep_all(retry, _lm_damping(config, acc_t, c, nu, e_prev, e_cand, pred),
+            c, nu = keep_all(retry, _lm_damping(config, acc_t, c, nu, e_base, e_cand, pred),
                              (c, nu))
             trial = keep_all(retry, cand, trial)
             e_trial = keep(retry, e_cand, e_trial)
@@ -521,15 +582,16 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
             retries += 1
             # lanes that will iterate again: running, accepted, and E moved
             # by more than delta_tol (NaN counts as converged here)
-            run_next = run & accepted & ~(torch.abs(e_trial - e_prev) <= config.delta_tol)
+            run_next = run & accepted & ~(torch.abs(e_trial - e_base) <= config.delta_tol)
             # the one host read of the retry
             retrying, iterating = torch.stack([(~accepted).any(), run_next.any()]).tolist()
             if not retrying:
                 break
-        del derivs
+        del derivs, vis_it
         took = run & accepted
         state = keep_all(took, trial, state)
-        e_prev = keep(took, e_trial, e_prev)
+        # a lane that accepted nothing keeps its state and the baseline E
+        e_prev = keep(took, e_trial, e_base)
         if not nielsen:
             c = keep(run, c / config.divisor, c)
         n_iter = n_iter + run

@@ -20,8 +20,11 @@ The non-fused per-chunk blocks (``_chunk_factors``, ``_point_grad_and_block``,
 host-streamed cores; the non-fused chunked build over them waits for the
 distortion slice.
 
-Robust losses, distortion and the sharded (``axis_name``) variant are not
-ported yet and raise ``NotImplementedError``.
+Robust losses run as IRLS, as in the JAX package: every retry's build
+weights each observation from its residual at the current state, and the
+accept test, the Nielsen gain ratio and the stop test compare with the
+weighted E that build returns. Distortion and the sharded (``axis_name``)
+variant are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from .bundle_adjustment import (
     _prepare_problem,
     _state_error,
     build_K,
+    resolve_robust,
     restore_gauge,
 )
 
@@ -61,10 +65,13 @@ def _kadd(acc, x):
     return (t, (t - s) - y)
 
 
-def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c):
-    """Fused generate-and-reduce build over the chunks.
+def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None,
+                        robust_kind="huber"):
+    """Fused generate-and-reduce build over the chunks, IRLS-weighted with
+    ``huber_delta``.
 
-    Returns (A', b', E_now, (diag_g, d_F), free_tm) in type-major layout."""
+    Returns (A', b', E_now (weighted with ``huber_delta``), (diag_g, d_F),
+    free_tm) in type-major layout."""
     nf = cam.f.shape[0]
     dt = x_ch[0].dtype
     dev = x_ch[0].device
@@ -76,7 +83,8 @@ def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c):
     zero = torch.zeros((), dtype=dt, device=dev)
     e_acc = (zero, zero)
     for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
-        acc, d_F, matG, e_chunk, b_p = fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0, c)
+        acc, d_F, matG, e_chunk, b_p = fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0, c,
+                                                          huber_delta, robust_kind)
         g = g + matG
         d_f = d_f + d_F
         e_acc = _kadd(e_acc, e_chunk)
@@ -87,9 +95,11 @@ def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c):
     return a, b, e_acc[0], (diag_g, d_f), free_tm
 
 
-def _backsub_and_trial(cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi):
+def _backsub_and_trial(cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi,
+                       huber_delta=None, robust_kind="huber"):
     """Per chunk: back-substitute the point update at the current state and
-    sum the trial error under the updated cameras.
+    sum the trial error under the updated cameras (under the current
+    state's IRLS weights with ``huber_delta``).
 
     Returns (X_new chunks, E_trial, dDd_pts, g_d_pts)."""
     zero = torch.zeros((), dtype=x_ch[0].dtype, device=x_ch[0].device)
@@ -97,7 +107,7 @@ def _backsub_and_trial(cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi
     X_new = []
     for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
         X_n, e_c, dDd_c, gd_c = fused_backsub_chunk(
-            cam, trial_cam, X_c, x_c, vis_c, f0, c, delta_xi * free
+            cam, trial_cam, X_c, x_c, vis_c, f0, c, delta_xi * free, huber_delta, robust_kind
         )
         X_new.append(X_n)
         e_acc, dDd_acc, gd_acc = _kadd(e_acc, e_c), _kadd(dDd_acc, dDd_c), _kadd(gd_acc, gd_c)
@@ -152,6 +162,8 @@ def lm_optimize_chunked(
 
     log_e = [e_prev] if config.record_log else None
     nielsen = config.damping == "nielsen"
+    robust_kind = resolve_robust(config.robust)
+    huber_delta = None if robust_kind is None else config.huber_delta
     nf = cam.f.shape[0]
     f_pad, _ = schur_acc_dim(nf)
     c = as_tensor(config.init_damping if init_c is None else init_c, dev, dt)
@@ -163,15 +175,18 @@ def lm_optimize_chunked(
         tries = 0
         e_base = e_prev
         while not accepted and tries < config.max_inner_retries:
-            a, b, _, (diag_g, d_f), free_tm = _build_system_fused(
-                cam, X_ch, x_ch, vis_ch, free, f0, c
+            a, b, e_w, (diag_g, d_f), free_tm = _build_system_fused(
+                cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta, robust_kind
             )
+            if huber_delta is not None:
+                e_base = e_w  # the weighted E at the current state
             delta_tm = _solve_cam(a, b, config.jacobi_scaling) * free_tm
             del a, b
             delta_xi = type_major_to_camera_major(delta_tm, nf, f_pad)
             trial_cam = _apply_update(cam, delta_xi, torch.zeros((0, 3), dtype=dt, device=dev))
             X_trial, e_trial, dDd_pts, gd_pts = _backsub_and_trial(
-                cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi
+                cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi, huber_delta,
+                robust_kind
             )
             acc_t = e_trial <= e_base
             pred = None

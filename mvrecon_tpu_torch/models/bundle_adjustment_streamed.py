@@ -19,6 +19,12 @@ float32. Here it stays a NumPy array in host memory (with the optional
 On the card the chunks move through ``_ChunkFeed``: pinned staging
 buffers filled by a worker thread and copied on a dedicated stream,
 ``prefetch`` chunks ahead of the computation.
+
+Under a robust loss each chunk's IRLS weights come from its residuals at
+the current state, in both passes: pass 1 weights the blocks (and so the Y
+that K1 reads) and returns the weighted E, the retry's accept baseline;
+pass 2 sums the trial error under the same weights. No (P, F) weight
+array exists.
 """
 
 from __future__ import annotations
@@ -49,15 +55,20 @@ from .bundle_adjustment import (
     gauge_mask,
     intrinsics_from_K,
     normalize_gauge,
+    resolve_robust,
     restore_gauge,
 )
 
 
-def _accumulate_chunk(accs, cam: BAState, X_c, x_c, vis_c, free, c: float, f0: float):
+def _accumulate_chunk(accs, cam: BAState, X_c, x_c, vis_c, free, c: float, f0: float,
+                      huber_delta=None, robust_kind: str = "huber"):
     """Fold one chunk's damped Schur/gradient contributions into the
-    accumulators (schur, b, G, d_F, E) and return them."""
+    accumulators (schur, b, G, d_F, E) and return them. With
+    ``huber_delta`` the blocks and the error are IRLS-weighted at the
+    current state."""
     schur_acc, b_acc, g_acc, df_acc, e_acc = accs
-    d_P, d_F, matE, matF, matG, e_chunk = _chunk_blocks(cam, X_c, x_c, vis_c, free, f0)
+    d_P, d_F, matE, matF, matG, e_chunk = _chunk_blocks(cam, X_c, x_c, vis_c, free, f0,
+                                                        huber_delta, robust_kind)
     linv = inv_lower3(chol3x3(_damp(matE, c)))
     npts_c, _, nf9 = matF.shape
     # Yᵀ (9F, 3C) = (L⁻¹F)ᵀ, written by the product itself in rows that
@@ -83,10 +94,12 @@ def _assemble_and_solve(accs, free, c: float):
 
 
 def _backsub_chunk(cam: BAState, trial_cam: BAState, X_c, x_c, vis_c, free, c: float,
-                   delta_xi, f0: float):
-    """Back-substitute one chunk's point update and its trial error.
+                   delta_xi, f0: float, huber_delta=None, robust_kind: str = "huber"):
+    """Back-substitute one chunk's point update and its trial error, the
+    latter under the current state's IRLS weights with ``huber_delta``.
     Returns (X_new_c, e_trial_c)."""
-    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(cam, X_c, x_c, vis_c, f0)
+    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(cam, X_c, x_c, vis_c, f0,
+                                                         huber_delta, robust_kind)
     d_P, matE = _point_grad_and_block(a1, a2, res_p, res_q, vis_c)
     einv = inv3x3(_damp(matE, c))
     nf = cam.f.shape[0]
@@ -273,17 +286,18 @@ def bundle_adjust_streamed(
     ``max_inner_retries`` tries per iteration, and a stop after an
     iteration that accepted nothing or moved E by at most ``delta_tol``.
     The host reads the error once per segment and the trial error once
-    per retry. ``init_c`` resumes the damping (the returned ``log["c"]``
+    per retry. Under a robust loss (IRLS) the retry's baseline is the
+    weighted E at the current state from pass 1, read with the trial
+    error, and the returned E is the weighted one. ``init_c`` resumes the damping (the returned ``log["c"]``
     carries the final value), so segmented runs match continuous ones.
 
     ``prefetch``: chunks copied ahead of the computation (0 = serial);
     the results are identical either way. ``timer`` (an ``EventTimer``)
     records ``pass1``, ``pass2`` and ``h2d`` spans on the card.
 
-    Distortion, ``config.distortion_rounds > 0`` and the robust losses are
-    not ported yet and raise ``NotImplementedError`` (``_check_ported``:
-    None, "" and "none" are plain least squares, an unknown loss name
-    raises ``ValueError``)."""
+    Distortion and ``config.distortion_rounds > 0`` are not ported yet and
+    raise ``NotImplementedError``; an unknown loss name raises
+    ``ValueError`` (``resolve_robust``)."""
     _check_ported(config, dist=distortion)
     dev = resolve_device(device)
     x_host = np.asarray(x_host)
@@ -301,6 +315,8 @@ def bundle_adjust_streamed(
     free = gauge_mask(nf, axis, dt, dev)
     feed = _ChunkFeed(x_host, vis_host, chunk_size, dt, dev, prefetch=prefetch, timer=timer)
     nf9 = 9 * nf
+    robust_kind = resolve_robust(config.robust)
+    huber_delta = None if robust_kind is None else config.huber_delta
 
     def zeros_accs():
         return (
@@ -343,8 +359,8 @@ def bundle_adjust_streamed(
                     accs = zeros_accs()
                     for lo, hi, x_c, vis_c in feed:
                         accs = _accumulate_chunk(accs, cam, get_X_chunk(X_dev, lo, hi), x_c,
-                                                 vis_c, free, c, f0)
-                    delta_xi, _ = _assemble_and_solve(accs, free, c)
+                                                 vis_c, free, c, f0, huber_delta, robust_kind)
+                    delta_xi, e_w = _assemble_and_solve(accs, free, c)
                     del accs
                 trial_cam = _apply_update(cam, delta_xi, no_points)
 
@@ -354,10 +370,14 @@ def bundle_adjust_streamed(
                     e_trial = torch.zeros((), dtype=dt, device=dev)
                     for lo, hi, x_c, vis_c in feed:
                         X_new_c, e_c = _backsub_chunk(cam, trial_cam, get_X_chunk(X_dev, lo, hi),
-                                                      x_c, vis_c, free, c, delta_xi, f0)
+                                                      x_c, vis_c, free, c, delta_xi, f0,
+                                                      huber_delta, robust_kind)
                         X_parts.append(X_new_c[: hi - lo])
                         e_trial = e_trial + e_c
-                e_trial = float(e_trial)  # the one host read of the retry
+                # the one host read of the retry
+                e_trial, e_w = torch.stack([e_trial, e_w]).tolist()
+                if huber_delta is not None:
+                    e_base = e_w  # the weighted E at the current state
 
                 if e_trial <= e_base and np.isfinite(e_trial):
                     accepted = True

@@ -154,7 +154,9 @@ def euclidean_reconstruction_large(
     schedule) and DLT re-triangulates all points from those cameras, the
     recovery path for weak starts. Give it enough iterations to converge:
     an under-converged bootstrap makes the re-triangulated points far
-    worse than calibration's.
+    worse than calibration's. ``config`` (a robust loss included) drives
+    the final BA only; the bootstrap keeps its own plain-loss schedule, as
+    in the JAX package.
 
     Runs on the card unless ``device`` says otherwise; the working dtype
     is x's. ``timer`` records the wall of each stage. The sharded

@@ -15,6 +15,12 @@ the rhs stay full float32 — lowering those was measured there to cost LM
 retries. With float64 inputs Y and the accumulator stay float64, and the
 build is the non-fused algebra, permuted.
 
+Under a robust loss (``huber_delta`` set) both passes take the IRLS weights
+of ``robust_kind`` from the raw residuals at the current cameras and
+multiply them into the visibility before any sum: the weighted Y goes
+through K2 at the same shapes, and the back-substitution takes the trial
+error under those current-state weights.
+
 On a CUDA tensor ``syrk_acc`` launches the kernel in
 ``csrc/syrk_acc.cu`` or raises; on a CPU tensor it runs the plain version
 ``syrk_acc_reference``.
@@ -26,7 +32,7 @@ import ctypes
 
 import torch
 
-from ..models.bundle_adjustment import _distorted_residual, build_K, calc_pqr
+from ..models.bundle_adjustment import _distorted_residual, build_K, calc_pqr, robust_weight
 from .linalg import chol3x3, inv_lower3
 from .syrk import TILE, mirror_lower
 
@@ -175,16 +181,20 @@ def _factor_planes(cam, X_c, x_c, pmat, p, q, r, f0: float):
     return res_p, res_q, a1, a2, b1, b2
 
 
-def _point_terms(cam, X_c, x_c, vis_c, f0: float, c):
+def _point_terms(cam, X_c, x_c, vis_c, f0: float, c, huber_delta=None,
+                 robust_kind: str = "huber"):
     """Per-chunk generation shared by the build and the back-substitution:
-    the factor planes, the point gradient d_P, the point blocks matE and
-    the damped Cholesky inverse L⁻¹ of each (1 + c diag) matE."""
+    the effective (IRLS-weighted with ``huber_delta``) visibility, the
+    factor planes, the point gradient d_P, the point blocks matE and the
+    damped Cholesky inverse L⁻¹ of each (1 + c diag) matE."""
     dt = x_c.dtype
     c_pts, nf = x_c.shape[0], x_c.shape[1]
     pmat, p, q, r = calc_pqr(X_c, build_K(cam.f, cam.u, f0), cam.R, cam.t)
     vis_d = vis_c.expand(c_pts, nf).to(dt)
     r = torch.where(vis_d > 0, r, torch.ones_like(r))
     res_p, res_q, a1, a2, b1, b2 = _factor_planes(cam, X_c, x_c, pmat, p, q, r, f0)
+    if huber_delta is not None:
+        vis_d = vis_d * robust_weight(torch.sqrt(res_p**2 + res_q**2), huber_delta, robust_kind)
 
     visf = vis_d[..., None]
     d_P = 2.0 * torch.sum(visf * (res_p[..., None] * a1 + res_q[..., None] * a2), dim=1)
@@ -197,17 +207,20 @@ def _point_terms(cam, X_c, x_c, vis_c, f0: float, c):
     return vis_d, res_p, res_q, a1, a2, b1, b2, d_P, matE, linv
 
 
-def fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0: float, c):
+def fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0: float, c, huber_delta=None,
+                       robust_kind: str = "huber"):
     """One chunk of the fused build: the gradient-side quantities, the
-    damped type-major Y, and its SYRK accumulated into ``acc`` in place.
+    damped type-major Y, and its SYRK accumulated into ``acc`` in place;
+    everything IRLS-weighted with ``huber_delta``.
 
-    Returns (acc, d_F_cm (9F,) unmasked, matG (F, 9, 9), e_chunk,
-    b_p (9, Fp))."""
+    Returns (acc, d_F_cm (9F,) unmasked, matG (F, 9, 9), e_chunk (the
+    weighted E with ``huber_delta``), b_p (9, Fp))."""
     dt = x_c.dtype
     c_pts, nf = x_c.shape[0], x_c.shape[1]
     n_acc = acc.shape[0]
     f_pad = n_acc // 9
-    vis_d, res_p, res_q, a1, a2, b1, b2, d_P, _, linv = _point_terms(cam, X_c, x_c, vis_c, f0, c)
+    vis_d, res_p, res_q, a1, a2, b1, b2, d_P, _, linv = _point_terms(
+        cam, X_c, x_c, vis_c, f0, c, huber_delta, robust_kind)
     e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2))
 
     w2 = 2.0 * vis_d
@@ -233,12 +246,16 @@ def fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0: float, c):
     return acc, d_F_cm, matG, e_chunk, torch.nn.functional.pad(b_p, (0, f_pad - nf))
 
 
-def fused_backsub_chunk(cam, trial_cam, X_c, x_c, vis_c, f0: float, c, delta_xi_cm):
-    """Back-substitution for one chunk from the type-major b planes.
+def fused_backsub_chunk(cam, trial_cam, X_c, x_c, vis_c, f0: float, c, delta_xi_cm,
+                        huber_delta=None, robust_kind: str = "huber"):
+    """Back-substitution for one chunk from the type-major b planes. With
+    ``huber_delta`` the weights are taken anew at the current cameras
+    ``cam``, and the trial error at ``trial_cam`` is summed under them.
 
     Returns (X_new, e_trial_chunk, dDd_chunk, g_d_chunk)."""
     nf = x_c.shape[1]
-    vis_d, _, _, a1, a2, b1, b2, d_P, matE, linv = _point_terms(cam, X_c, x_c, vis_c, f0, c)
+    vis_d, _, _, a1, a2, b1, b2, d_P, matE, linv = _point_terms(
+        cam, X_c, x_c, vis_c, f0, c, huber_delta, robust_kind)
 
     dxi_tm = delta_xi_cm.reshape(nf, 9).T  # (9, F)
     s1 = vis_d * torch.einsum("jpf,jf->pf", b1, dxi_tm)

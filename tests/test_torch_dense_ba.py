@@ -226,7 +226,7 @@ def test_bundle_adjust_float32_matches_jax(damping):
 
 def test_unported_options_raise():
     prob = _problem(6, 5)
-    for cfg, kw in ((LMConfig(robust="huber"), {}), (LMConfig(distortion_rounds=1), {}),
+    for cfg, kw in ((LMConfig(distortion_rounds=1), {}),
                     (LMConfig(), {"distortion": np.zeros((6, 2))})):
         with pytest.raises(NotImplementedError):
             tba.bundle_adjust(*prob, config=cfg, device="cpu", **kw)

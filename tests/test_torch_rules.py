@@ -48,6 +48,11 @@ def test_no_jax_or_jax_package_import(path):
 def test_entry_points_default_to_the_card(monkeypatch):
     from mvrecon_tpu_torch.models.bundle_adjustment import bundle_adjust
     from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
+    from mvrecon_tpu_torch.models.covariance import (
+        ba_covariance,
+        ba_covariance_chunked,
+        ba_covariance_streamed,
+    )
     from mvrecon_tpu_torch.models.perspective import perspective_self_calibration
     from mvrecon_tpu_torch.models.affine import affine_self_calibration
     from mvrecon_tpu_torch.models.pipelines import (
@@ -81,6 +86,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         bundle_adjust_chunked(x.transpose(1, 0, 2), *start)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bundle_adjust(x.transpose(1, 0, 2), *start)
+    for fn in (ba_covariance, ba_covariance_chunked, ba_covariance_streamed):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(x.transpose(1, 0, 2), *start)
 
 
 def _function(tree, name):

@@ -221,7 +221,7 @@ def test_streamed_float32_matches_jax_chunked_float32():
     assert tres.n_iter == int(jres.n_iter)
 
 
-@pytest.mark.parametrize("change", [dict(distortion_rounds=1), dict(robust="huber")])
+@pytest.mark.parametrize("change", [dict(distortion_rounds=1)])
 def test_streamed_unported_options_raise(change):
     prob = _problem(nf=6, n_slices=2)
     cfg = dataclasses.replace(lm_config_from_fields({}), **change)
