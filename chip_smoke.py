@@ -10,9 +10,10 @@ Phases, each of which stops the script with a non-zero exit on failure:
 2. build: every hand-written kernel, from ``mvrecon_tpu_torch/csrc/``,
    one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and at k_rows that are no multiple of a kernel's
-   stage, with its time, the plain version's, one PyTorch call's and the
-   bound of the work;
+   the main paths' shapes (K1 also at the non-fused chunked build's Y
+   (2304, 9000), and its deferred-mirror sum over two chunks) and at
+   k_rows that are no multiple of a kernel's stage, with its time, the
+   plain version's, one PyTorch call's and the bound of the work;
 4. pipeline: ``euclidean_reconstruction_large`` at 100k points x 1000
    views, float32, chunk 768, counting kernel launches on that run;
 4i. robust chunked: phase 4's scene with 3 % of the observations moved by
@@ -29,6 +30,18 @@ Phases, each of which stops the script with a non-zero exit on failure:
    their largest; its second run, after 4c, holds ``ba_covariance`` and
    the chunked variant on phase 4c's result to 1e-3 of each other in
    float64 and reports their float32 gap;
+4n. distorted chunked: phase 4's scene rendered through a shared BAL radial
+   (k1, k2) = (-0.3, 0.05) (the port's own terms, then sigma noise),
+   ``bundle_adjust_chunked`` (the fused build, K2) with two shared refit
+   rounds from zero, 5 Nielsen iterations a segment; K2 launches == retries
+   x chunks and no K1; then ``ba_covariance_chunked`` with its distortion;
+4o. OPENCV chunked: the same scene through a shared OPENCV (-0.28, 0.035,
+   0.018, -0.012), the non-fused build (K1, summed over the chunks with one
+   mirror), one refit round; K1 launches == retries x chunks and no K2,
+   K1's time a launch inside the run and the build's share of a retry;
+   each distorted phase checks E / floor < 1.5 and that the recovered
+   model reproduces the true one's displacement over the scene's rays
+   (``model_error`` < 0.25), and reports k against the truth;
 4b. streamed: ``bundle_adjust_streamed`` at 1M points x 500 views from
    host memory, float32, chunk 16384, prefetch 2, counting K1 launches,
    with the time of each pass, the host-to-device rate and the peak
@@ -41,6 +54,10 @@ Phases, each of which stops the script with a non-zero exit on failure:
    under the Huber loss for 5 iterations: K1 launches == retries x chunks,
    the inlier E at the floor, the peak device memory below the
    observations' bytes;
+4p. distorted streamed: phase 4b's problem re-rendered through the radial
+   truth into the host observations a chunk at a time, one refit round,
+   3 iterations a segment: K1 launches == retries x chunks, peak device
+   memory below the observations' bytes;
 4c. dense BA: ``bundle_adjust`` at 10k points x 100 views, float32, from
    the true K and R with X and t perturbed by 0.05 N(0, 1), one warm-up
    and one timed run of 10 iterations, with the time of its layers (the
@@ -48,6 +65,11 @@ Phases, each of which stops the script with a non-zero exit on failure:
    side); it launches neither kernel;
 4d. ``euclidean_reconstruction`` (calibration, then dense BA) on the same
    observations, launching neither kernel;
+4m. distorted dense: ``scripts/bench_bal.py``'s distorted problem (20k
+   points x 100 views, each point seen by 20 consecutive views, the radial
+   truth, 2 % of the observations moved by 0.5 N(0, 1), Huber, two shared
+   refit rounds from zero) through ``bundle_adjust``: no launch, the
+   inlier E at the floor;
 4e. ``euclidean_reconstruction_large`` on phase 4's scene with the camera
    bootstrap (12 iterations on a 10 % subsample, DLT re-triangulation),
    whose K2 launches are the final BA's retries x chunks plus a positive
@@ -72,13 +94,16 @@ Phases, each of which stops the script with a non-zero exit on failure:
    pipelines on three small scenes on each side, and a batch whose
    second scene is all NaN, which must end flagged while the others reach
    the floor, the robust dense and chunked cores on the small scene with
-   gross outliers, and ``ba_covariance`` in float64 (to 1e-8);
+   gross outliers, ``ba_covariance`` in float64 (to 1e-8), and the radial
+   and OPENCV models (one refit round, one iteration a segment) through the
+   dense, chunked (fused and non-fused) and streamed cores;
 6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
-``--points`` shrinks phases 4, 4i, 4k and 4e (``--ba-iters`` sets the BA
-iterations of 4 and 4e), ``--streamed-points`` phases 4b, 4l and 4j,
-``--dense-points`` phases 4c, 4d and 4k's second run and
+``--points`` shrinks phases 4, 4i, 4k, 4n, 4o and 4e (``--ba-iters`` sets the
+BA iterations of 4 and 4e), ``--streamed-points`` phases 4b, 4l, 4j and 4p,
+``--dense-points`` phases 4c, 4d and 4k's second run, ``--bal-points``
+phase 4m and
 ``--batched-scenes`` phases 4f-4h for a quick run; the views and the
 chunks stay the main paths', so the kernel checks keep their shapes.
 """
@@ -145,6 +170,27 @@ ROBUST_ITERS = 10  # phase 4i's iterations, robust and plain
 K2_DESIGN = ("bf16 wgmma m64n128k16, both operands MN-major from a 4-stage TMA ring of "
              "64-row stages; persistent blocks; the two consumer warpgroups take turns; "
              "old acc prefetched by TMA")
+# Distortion phases (4m-4p and phase 5's distortion part): the shared truths
+# are scripts/bench_bal.py:46's BAL radial (k1, k2) and
+# tests/test_distortion.py::test_tangential_e2e_recovers_geometry_all_cores'
+# OPENCV (k1, k2, p1, p2)
+RADIAL_TRUTH = (-0.3, 0.05)
+OPENCV_TRUTH = (-0.28, 0.035, 0.018, -0.012)
+# What a refit must recover: the true model's displacement over the
+# scene's observed rays, to MODEL_TOL of its RMS (model_error). The
+# parameters themselves are reported against the truth and not checked:
+# on these narrow scenes k2 is not identified (model_error's docstring).
+MODEL_TOL = 0.25
+# Phase 5, distortion: on its 8-view x 80-point problem the CPU's own
+# float32 runs part from float64 by 1.0e-5-2.1e-5 and by 1.1e-5-2.2e-5 when
+# only the point order changes (scripts/distortion_float32_noise.py): the
+# residuals of about 6e-3 on coordinates of about 0.5 keep few bits. The
+# card against the CPU is held to five times that.
+DISTORTION_RTOL = 1e-4
+DIST_ITERS = 5  # 4n and 4o: Nielsen iterations a segment
+BAL_WINDOW = 20  # 4m, scripts/bench_bal.py: each point seen by 20 consecutive of 100 views
+BAL_OUTLIER_SHARE = 0.02  # ... 2 % of the visible observations moved by 0.5 N(0, 1)
+BAL_OUTLIER_SCALE = 0.5
 K1_DESIGN = ("3xTF32 on wgmma m64n128k8, Y K-major from a 5-stage TMA ring of 32-row stages; "
              "A split in registers, B's small parts in shared planes one stage ahead; "
              "persistent blocks")
@@ -932,12 +978,476 @@ def robust_gpu_vs_cpu(torch, fs, sy, small, small_cfg) -> None:
               f"float64 covariance ({name}), card against CPU, differs by {diffs}")
 
 
+def syrk_accumulate_check(torch, sy, k_rows: int, n: int, seed: int) -> dict:
+    """K1's deferred-mirror sum, as the non-fused chunked build runs it: two
+    chunks' Y (K-major, as the build writes them) summed into one
+    accumulator by ``syrk_lower_accumulate``, mirrored once, against the
+    plain sum Y1ᵀY1 + Y2ᵀY2 in float64; the result exactly symmetric."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ys = [torch.randn(n, sy.row_stride(k_rows), generator=gen, device="cuda")[:, :k_rows].T
+          for _ in range(2)]
+    n_acc = sy.syrk_accumulator_dim(n)
+    acc = torch.zeros(n_acc, n_acc, device="cuda")
+    for y in ys:
+        sy.syrk_lower_accumulate(acc, y)
+    got = sy.finish_syrk_accumulator(acc, n)
+    del acc
+    want = sum(y.double().T @ y.double() for y in ys)
+    err = float((got.double() - want).abs().max())
+    rec = {"shape": [k_rows, n], "chunks": len(ys), "max_abs_err": err,
+           "max_rel_err": err / float(want.abs().max()),
+           "symmetric": bool(torch.equal(got, got.T))}
+    del got, want
+    print("syrk_lower_accumulate check " + json.dumps(rec), flush=True)
+    check(rec["max_rel_err"] < 1e-5,
+          f"syrk_lower_accumulate ({k_rows}, {n}) rel err {rec['max_rel_err']:.3e}")
+    check(rec["symmetric"], "the mirrored accumulator is not exactly symmetric")
+    return rec
+
+
+def true_state(tba, scene):
+    """The scene's true state as a ``BAState`` (f0 = 1)."""
+    f, u = tba.intrinsics_from_K(scene.K, 1.0)
+    return tba.BAState(X=scene.X, f=f, u=u, t=scene.t, R=scene.R)
+
+
+def render_distorted(torch, tba, truth, dist, gen, lo: int, hi: int):
+    """Observations (hi - lo, F, 2) of the true points lo:hi through the
+    model of ``dist`` (the port's own terms: the distorted prediction is
+    ``_distorted_residual`` against zero), plus ``NOISE`` N(0, 1) from
+    ``gen``; and the largest s = |rho|^2 among them."""
+    st = truth._replace(X=truth.X[lo:hi])
+    _, p, q, r = tba.calc_pqr(st.X, tba.build_K(st.f, st.u, 1.0), st.R, st.t)
+    zero = torch.zeros(p.shape + (2,), dtype=p.dtype, device=p.device)
+    x = torch.stack(tba._distorted_residual(st, p, q, r, zero, 1.0, dist), dim=-1)
+    s_max = float(tba._distortion_terms(st, p, q, r, 1.0, dist)[2].max())
+    return x + NOISE * torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device), s_max
+
+
+def render_all(torch, tba, truth, dist, gen, out, chunk: int = 8192) -> float:
+    """``render_distorted`` of every point into ``out`` (P, F, 2), a card
+    tensor or a host array, a chunk at a time; returns the largest s."""
+    s_max = 0.0
+    for lo in range(0, truth.X.shape[0], chunk):
+        hi = min(lo + chunk, truth.X.shape[0])
+        x_c, s = render_distorted(torch, tba, truth, dist, gen, lo, hi)
+        out[lo:hi] = x_c if torch.is_tensor(out) else x_c.cpu().numpy()
+        s_max = max(s_max, s)
+    return s_max
+
+
+def monotone_margin(k, s_max: float) -> float:
+    """The smallest d(r d)/dr = 1 + 3 k1 s + 5 k2 s^2 over s in [0, s_max]:
+    positive when the radial map stays monotone over the scene's rays."""
+    s = np.linspace(0.0, s_max, 1001)
+    return float((1.0 + 3.0 * k[0] * s + 5.0 * k[1] * s * s).min())
+
+
+def check_monotone(name: str, k, s_max: float) -> float:
+    margin = monotone_margin(k, s_max)
+    check(margin > 0.0, f"{name}: the radial map of {k} is not monotone up to s = {s_max:.4g}")
+    return margin
+
+
+def distorted_inlier_error(torch, tba, res, x, keep, chunk: int) -> tuple[float, int]:
+    """(E of the distorted residuals over the observations where ``keep``
+    (P, F) at the state and distortion of ``res``, their count); x
+    (P, F, 2) on the host or the card, taken a point chunk at a time."""
+    f, u = tba.intrinsics_from_K(res.K, 1.0)
+    cam = tba.BAState(X=res.X, f=f, u=u, t=res.t, R=res.R)
+    e, n = 0.0, 0
+    for lo in range(0, x.shape[0], chunk):
+        x_c = torch.as_tensor(x[lo:lo + chunk], device="cuda")
+        k = torch.as_tensor(keep[lo:lo + chunk], device="cuda")
+        st = cam._replace(X=res.X[lo:lo + chunk])
+        _, p, q, r = tba.calc_pqr(st.X, res.K, res.R, res.t)
+        r = torch.where(k, r, torch.ones_like(r))
+        rp, rq = tba._distorted_residual(st, p, q, r, x_c, 1.0, res.distortion)
+        e += float(torch.sum(torch.where(k, rp * rp + rq * rq, 0.0), dtype=torch.float64))
+        n += int(k.sum())
+    return e, n
+
+
+def k_error(res, truth) -> float:
+    """Largest |k - k_true| over the cameras and parameters."""
+    return float((res.distortion - res.distortion.new_tensor(truth)).abs().max())
+
+
+def model_error(torch, tba, truth, d_fit, d_true, chunk: int = 16384) -> float:
+    """How well a recovered distortion reproduces the true one where the
+    scene looks: over every observed ray of the true geometry, the RMS of
+    the difference between the two models' displacements (distorted minus
+    pinhole prediction) over the RMS of the true displacement. (k1, k2)
+    themselves are not identified on these scenes: s = |rho|^2 stays below
+    about 0.35, so k2 s^2 trades against k1 s and the geometry at equal E
+    (``scripts/distortion_identifiability.py``)."""
+    num = den = 0.0
+    for lo in range(0, truth.X.shape[0], chunk):
+        st = truth._replace(X=truth.X[lo:lo + chunk])
+        _, p, q, r = tba.calc_pqr(st.X, tba.build_K(st.f, st.u, 1.0), st.R, st.t)
+        zero = torch.zeros(p.shape + (2,), dtype=p.dtype, device=p.device)
+        pinhole = torch.stack((p / r, q / r), dim=-1)
+        fit, true = (torch.stack(tba._distorted_residual(st, p, q, r, zero, 1.0, d), dim=-1)
+                     for d in (d_fit, d_true))
+        num += float(torch.sum((fit - true) ** 2, dtype=torch.float64))
+        den += float(torch.sum((true - pinhole) ** 2, dtype=torch.float64))
+    return math.sqrt(num / den)
+
+
+def distorted_dense(torch, fs, sy, bal_points: int) -> None:
+    """Phase 4m: ``scripts/bench_bal.py``'s distorted problem through the
+    dense ``bundle_adjust``: 20k points x 100 views, each point seen by 20
+    consecutive views, a shared radial (k1, k2) = (-0.3, 0.05), 2 % of the
+    visible observations moved by 0.5 N(0, 1), X and t perturbed by
+    0.05 N(0, 1), Huber, two shared refit rounds from zero."""
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    scene = make_synthetic_scene(gen, n_images=DENSE_VIEWS, n_slices=bal_points // 20,
+                                 n_angles=20, dtype=torch.float32)
+    truth = true_state(tba, scene)
+    npts, nf = scene.X.shape[0], DENSE_VIEWS
+    dist = torch.tensor(RADIAL_TRUTH, device="cuda").expand(nf, 2)
+    x = torch.empty((npts, nf, 2), device="cuda")
+    s_max = render_all(torch, tba, truth, dist, gen, x)
+    margin = check_monotone("distorted dense", RADIAL_TRUTH, s_max)
+    centers = torch.randint(0, nf, (npts,), generator=gen, device="cuda")
+    lo = (centers - BAL_WINDOW // 2).clamp(0, nf - BAL_WINDOW)
+    cams = torch.arange(nf, device="cuda")
+    vis = (cams[None] >= lo[:, None]) & (cams[None] < lo[:, None] + BAL_WINDOW)
+    seen = vis.flatten().nonzero()[:, 0]
+    n_out = int(BAL_OUTLIER_SHARE * seen.numel())
+    pick = seen[torch.rand(seen.numel(), generator=gen, device="cuda").argsort()[:n_out]]
+    x.view(-1, 2)[pick] += BAL_OUTLIER_SCALE * torch.randn((n_out, 2), generator=gen,
+                                                           device="cuda")
+    inlier = vis.clone()
+    inlier.view(-1)[pick] = False
+    start = perturbed_cameras(scene, seed=30, sigma=0.05)
+    cfg = LMConfig(scale_factor=4.0, delta_tol=1e-4, max_iter=30, accept_divisor=1.0,
+                   init_damping=3e-3, damping="nielsen", robust="huber",
+                   huber_delta=HUBER_DELTA, distortion_rounds=2, distortion_shared=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(fs, sy)
+    t0 = time.perf_counter()
+    res = tba.bundle_adjust(x, *start, visibility=vis.float(), axis="x-up_z-forward", config=cfg)
+    err = float(res.error)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(fs, sy)
+    e_in, n_in = distorted_inlier_error(torch, tba, res, x, inlier, 4096)
+    rec = {
+        "points": npts, "views": nf, "window": BAL_WINDOW, "observations": int(vis.sum()),
+        "outliers": n_out, "wall_s": wall, "n_iter": res.n_iter,
+        "retries": res.log["n_solver_retries"], "weighted_E": err, "inlier_E": e_in,
+        "inlier_E_vs_noise_floor": e_in / (n_in * 2 * NOISE**2),
+        "k": res.distortion[0].tolist(), "k_true": list(RADIAL_TRUTH),
+        "k_max_abs_err": k_error(res, RADIAL_TRUTH),
+        "k1_abs_err": abs(float(res.distortion[0, 0]) - RADIAL_TRUTH[0]),
+        "model_rms_rel_err": model_error(torch, tba, truth, res.distortion, dist),
+        "monotone_margin": margin, "s_max": s_max,
+        "aligned_rmse_X": float(aligned_rmse(res.X, scene.X)),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+        "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+    }
+    print("distorted_dense " + json.dumps(rec), flush=True)
+    check(rec["finite"], "distorted dense: an output is not finite")
+    check(launches == (0, 0), f"distorted dense launched the SYRK kernels {launches}")
+    check(rec["inlier_E_vs_noise_floor"] < 1.5,
+          f"distorted dense: inlier E / floor {rec['inlier_E_vs_noise_floor']:.4f}")
+    check(rec["model_rms_rel_err"] < MODEL_TOL,
+          f"distorted dense: the recovered model's displacement is off by "
+          f"{rec['model_rms_rel_err']:.4f} of the true one's (limit {MODEL_TOL})")
+
+
+def distorted_chunked(torch, fs, sy, scene, config) -> int:
+    """Phase 4n: phase 4's scene rendered through the shared BAL radial
+    truth, ``bundle_adjust_chunked`` (the fused build, K2) from X and t
+    perturbed by 0.02 N(0, 1), two shared refit rounds from zero and
+    ``DIST_ITERS`` Nielsen iterations a segment; then
+    ``ba_covariance_chunked`` of its result with its distortion. Returns
+    the K2 launches."""
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
+    from mvrecon_tpu_torch.models.covariance import ba_covariance_chunked
+    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
+
+    truth = true_state(tba, scene)
+    npts, nf = scene.X.shape[0], scene.K.shape[0]
+    dist = torch.tensor(RADIAL_TRUTH, device="cuda").expand(nf, 2)
+    x = torch.empty((npts, nf, 2), device="cuda")
+    s_max = render_all(torch, tba, truth, dist, torch.Generator(device="cuda").manual_seed(31),
+                       x)
+    margin = check_monotone("distorted chunked", RADIAL_TRUTH, s_max)
+    start = perturbed_cameras(scene, seed=31)
+    n_chunks = math.ceil(npts / CHUNK)
+    cfg = dataclasses.replace(config, max_iter=DIST_ITERS, distortion_rounds=2,
+                              distortion_shared=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(fs, sy)
+    t0 = time.perf_counter()
+    res = bundle_adjust_chunked(x, *start, axis="x-up_z-forward", config=cfg, chunk_size=CHUNK)
+    err = float(res.error)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(fs, sy)
+    retries = res.log["n_solver_retries_total"]
+    floor = npts * nf * 2 * NOISE**2
+    rec = {
+        "points": npts, "views": nf, "chunk": CHUNK, "chunks": n_chunks,
+        "iters_per_segment": DIST_ITERS, "rounds": cfg.distortion_rounds, "wall_s": wall,
+        "n_iter": res.n_iter, "retries": retries, "wall_per_retry_s": wall / retries,
+        "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+        "reprojection_error": err, "E_vs_noise_floor": err / floor,
+        "k": res.distortion[0].tolist(), "k_true": list(RADIAL_TRUTH),
+        "k_max_abs_err": k_error(res, RADIAL_TRUTH),
+        "k1_abs_err": abs(float(res.distortion[0, 0]) - RADIAL_TRUTH[0]),
+        "model_rms_rel_err": model_error(torch, tba, truth, res.distortion, dist),
+        "monotone_margin": margin, "s_max": s_max,
+        "aligned_rmse_X": float(aligned_rmse(res.X, scene.X)),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cov = ba_covariance_chunked(x, res.X, res.K, res.R, res.t, f0=1.0, axis="x-up_z-forward",
+                                chunk_size=CHUNK, distortion=res.distortion)
+    sigma = math.sqrt(float(cov.sigma2))
+    rec["covariance"] = {
+        "wall_s": time.perf_counter() - t0, "sigma": sigma, "sigma_true": NOISE,
+        "finite": finite(torch, cov.point_cov, cov.camera_cov, cov.sigma2),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    del cov, res, x
+    print("distorted_chunked " + json.dumps(rec), flush=True)
+    check(rec["finite"], "distorted chunked: an output is not finite")
+    check(launches[0] == retries * n_chunks > 0 and launches[1] == 0,
+          f"distorted chunked: launches {launches} != (retries {retries} x chunks {n_chunks}, 0)")
+    check(rec["E_vs_noise_floor"] < 1.5,
+          f"distorted chunked: E / floor {rec['E_vs_noise_floor']:.4f}")
+    check(rec["model_rms_rel_err"] < MODEL_TOL,
+          f"distorted chunked: the recovered model's displacement is off by "
+          f"{rec['model_rms_rel_err']:.4f} of the true one's (limit {MODEL_TOL})")
+    check(rec["covariance"]["finite"], "distorted chunked covariance: a block is not finite")
+    check(abs(sigma / NOISE - 1.0) < 0.05,
+          f"distorted chunked covariance: sigma {sigma:.6g} against the true {NOISE}")
+    return launches[0]
+
+
+def opencv_chunked(torch, fs, sy, scene, config) -> int:
+    """Phase 4o: phase 4's scene rendered through the shared OPENCV truth,
+    ``bundle_adjust_chunked`` (the non-fused build, K1) from X and t
+    perturbed by 0.02 N(0, 1), one shared refit round from zeros and
+    ``DIST_ITERS`` Nielsen iterations a segment; K1's launches and the
+    builds timed by CUDA events inside the run. Returns the K1 launches."""
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.models import bundle_adjustment_chunked as tbc
+    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
+    from mvrecon_tpu_torch.runtime.profiling import EventTimer
+
+    truth = true_state(tba, scene)
+    npts, nf = scene.X.shape[0], scene.K.shape[0]
+    dist = torch.tensor(OPENCV_TRUTH, device="cuda").expand(nf, 4)
+    x = torch.empty((npts, nf, 2), device="cuda")
+    s_max = render_all(torch, tba, truth, dist, torch.Generator(device="cuda").manual_seed(32),
+                       x)
+    margin = check_monotone("opencv chunked", OPENCV_TRUTH, s_max)
+    start = perturbed_cameras(scene, seed=32)
+    n_chunks = math.ceil(npts / CHUNK)
+    cfg = dataclasses.replace(config, max_iter=DIST_ITERS, distortion_rounds=1,
+                              distortion_shared=True, distortion_model="opencv")
+    timer = EventTimer()
+    syrk_lower, build = sy.syrk_lower, tbc._build_system
+
+    def timed_syrk_lower(y):
+        with timer.span("syrk_lower"):
+            return syrk_lower(y)
+
+    def timed_build(*args, **kwargs):
+        with timer.span("build"):
+            return build(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(fs, sy)
+    sy.syrk_lower, tbc._build_system = timed_syrk_lower, timed_build
+    try:
+        t0 = time.perf_counter()
+        res = tbc.bundle_adjust_chunked(x, *start, axis="x-up_z-forward", config=cfg,
+                                        chunk_size=CHUNK)
+        err = float(res.error)
+        wall = time.perf_counter() - t0
+    finally:
+        sy.syrk_lower, tbc._build_system = syrk_lower, build
+    launches = launch_counts(fs, sy)
+    spans = timer.ms()
+    retries = res.log["n_solver_retries_total"]
+    floor = npts * nf * 2 * NOISE**2
+    k1_ms = spans["syrk_lower"]
+    rec = {
+        "points": npts, "views": nf, "chunk": CHUNK, "chunks": n_chunks,
+        "iters_per_segment": DIST_ITERS, "rounds": cfg.distortion_rounds, "wall_s": wall,
+        "n_iter": res.n_iter, "retries": retries, "wall_per_retry_s": wall / retries,
+        "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+        "syrk_lower_ms_median": statistics.median(k1_ms), "syrk_lower_ms_min": min(k1_ms),
+        "syrk_lower_ms_max": max(k1_ms), "syrk_lower_s_total": sum(k1_ms) / 1e3,
+        "build_s_per_retry": statistics.mean(spans["build"]) / 1e3,
+        "build_share_of_retry": statistics.mean(spans["build"]) / 1e3 / (wall / retries),
+        "reprojection_error": err, "E_vs_noise_floor": err / floor,
+        "k": res.distortion[0].tolist(), "k_true": list(OPENCV_TRUTH),
+        "k_max_abs_err": k_error(res, OPENCV_TRUTH),
+        "k1_abs_err": abs(float(res.distortion[0, 0]) - OPENCV_TRUTH[0]),
+        "model_rms_rel_err": model_error(torch, tba, truth, res.distortion, dist),
+        "monotone_margin": margin, "s_max": s_max,
+        "aligned_rmse_X": float(aligned_rmse(res.X, scene.X)),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+    }
+    del res, x
+    print("opencv_chunked " + json.dumps(rec), flush=True)
+    check(rec["finite"], "opencv chunked: an output is not finite")
+    check(launches[1] == retries * n_chunks > 0 and launches[0] == 0,
+          f"opencv chunked: launches {launches} != (0, retries {retries} x chunks {n_chunks})")
+    check(len(k1_ms) == launches[1], "opencv chunked: a K1 launch was not timed")
+    check(rec["E_vs_noise_floor"] < 1.5, f"opencv chunked: E / floor {rec['E_vs_noise_floor']:.4f}")
+    check(rec["model_rms_rel_err"] < MODEL_TOL,
+          f"opencv chunked: the recovered model's displacement is off by "
+          f"{rec['model_rms_rel_err']:.4f} of the true one's (limit {MODEL_TOL})")
+    return launches[1]
+
+
+def distorted_streamed(torch, sy, x_host, truth, start_cams, s_cfg, full: bool) -> int:
+    """Phase 4p: phase 4b's problem re-rendered through the shared BAL
+    radial truth into the host observations in place, a chunk at a time
+    through the card; ``bundle_adjust_streamed`` with one shared refit
+    round from zero and 3 iterations a segment. Returns its K1 launches."""
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.models.bundle_adjustment_streamed import bundle_adjust_streamed
+    from mvrecon_tpu_torch.runtime.profiling import EventTimer
+
+    npts, nf = x_host.shape[0], x_host.shape[1]
+    dist = torch.tensor(RADIAL_TRUTH, device="cuda").expand(nf, 2)
+    s_max = render_all(torch, tba, truth, dist, torch.Generator(device="cuda").manual_seed(33),
+                       x_host, STREAMED_CHUNK)
+    margin = check_monotone("distorted streamed", RADIAL_TRUTH, s_max)
+    cfg = dataclasses.replace(s_cfg, max_iter=3, distortion_rounds=1, distortion_shared=True)
+    timer = EventTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sy.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bundle_adjust_streamed(x_host, *start_cams, axis="x-up_z-forward", config=cfg,
+                                 chunk_size=STREAMED_CHUNK, prefetch=2, timer=timer)
+    err = float(res.error)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_launches = sy.launch_counts["syrk_lower"]
+    peak = torch.cuda.max_memory_allocated()
+    spans = timer.ms()
+    retries = res.log["n_solver_retries"]
+    chunks = math.ceil(npts / STREAMED_CHUNK)
+    rec = {
+        "points": npts, "views": nf, "chunk": STREAMED_CHUNK, "chunks": chunks,
+        "iters_per_segment": cfg.max_iter, "rounds": cfg.distortion_rounds, "wall_s": wall,
+        "n_iter": res.n_iter, "retries": retries, "pass1_ms": spans["pass1"],
+        "pass2_ms": spans["pass2"], "syrk_lower_launches": k1_launches,
+        "reprojection_error": err, "E_vs_noise_floor": err / (npts * nf * 2 * NOISE**2),
+        "k": res.distortion[0].tolist(), "k_true": list(RADIAL_TRUTH),
+        "k_max_abs_err": k_error(res, RADIAL_TRUTH),
+        "k1_abs_err": abs(float(res.distortion[0, 0]) - RADIAL_TRUTH[0]),
+        "model_rms_rel_err": model_error(torch, tba, truth, res.distortion, dist),
+        "monotone_margin": margin, "s_max": s_max,
+        "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+        "max_memory_allocated_gb": peak / 1e9, "observations_gb": x_host.nbytes / 1e9,
+    }
+    del res
+    print("distorted_streamed " + json.dumps(rec), flush=True)
+    check(rec["finite"], "distorted streamed: an output is not finite")
+    check(k1_launches == retries * chunks > 0,
+          f"distorted streamed: syrk_lower launches {k1_launches} != retries {retries} x chunks "
+          f"{chunks}")
+    check(rec["E_vs_noise_floor"] < 1.5,
+          f"distorted streamed: E / floor {rec['E_vs_noise_floor']:.4f}")
+    check(rec["model_rms_rel_err"] < MODEL_TOL,
+          f"distorted streamed: the recovered model's displacement is off by "
+          f"{rec['model_rms_rel_err']:.4f} of the true one's (limit {MODEL_TOL})")
+    if full:
+        check(peak < x_host.nbytes, f"distorted streamed peak device memory {peak / 1e9:.2f} GB "
+              f"is not below the observations' {x_host.nbytes / 1e9:.2f} GB")
+    return k1_launches
+
+
+def distortion_gpu_vs_cpu(torch, fs, sy) -> None:
+    """Phase 5, distortion: a small problem (8 views x 80 points) rendered
+    through the radial and the OPENCV truths, through the dense core, the
+    chunked core (the fused build for radial, the non-fused one for
+    OPENCV) and the streamed core, each with one shared refit round from
+    zero and one iteration a segment, card against CPU."""
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.models.bundle_adjustment_chunked import bundle_adjust_chunked
+    from mvrecon_tpu_torch.models.bundle_adjustment_streamed import bundle_adjust_streamed
+
+    gen = torch.Generator().manual_seed(34)
+    sc = make_synthetic_scene(gen, n_images=8, n_slices=4, n_angles=20, dtype=torch.float32)
+    truth = true_state(tba, sc)
+    cams = perturbed_cameras(sc, seed=34)
+    rec = {}
+    for model, k in (("radial", RADIAL_TRUTH), ("opencv", OPENCV_TRUTH)):
+        dist = torch.tensor(k).expand(8, len(k))
+        x = render_distorted(torch, tba, truth, dist, gen, 0, sc.X.shape[0])[0].numpy()
+        cfg = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=1, distortion_rounds=1,
+                       distortion_shared=True, distortion_model=model, record_log=True)
+        kw = dict(axis="x-up_z-forward", config=cfg)
+        cores = {
+            "dense": lambda dev: tba.bundle_adjust(x, *cams, device=dev, **kw),
+            "chunked": lambda dev: bundle_adjust_chunked(x, *cams, chunk_size=32, device=dev,
+                                                         **kw),
+            "streamed": lambda dev: bundle_adjust_streamed(x, *cams, chunk_size=32, device=dev,
+                                                           **kw),
+        }
+        for core, run in cores.items():
+            reset_launch_counts(fs, sy)
+            r_g = run("cuda")
+            launches = launch_counts(fs, sy)
+            r_c = run("cpu")
+            e_g, e_c = float(r_g.error), float(r_c.error)
+            rec[f"{model}_{core}"] = {
+                "n_iter_gpu": r_g.n_iter, "n_iter_cpu": r_c.n_iter, "E_gpu": e_g, "E_cpu": e_c,
+                "E_rel_diff": abs(e_g - e_c) / e_c, "rtol": DISTORTION_RTOL,
+                "k_gpu": r_g.distortion[0].tolist(), "k_cpu": r_c.distortion[0].tolist(),
+                "k_max_abs_diff": float((r_g.distortion.cpu() - r_c.distortion).abs().max()),
+                "launches_gpu": launches,
+            }
+    print("distortion_gpu_vs_cpu " + json.dumps(rec), flush=True)
+    for name, r in rec.items():
+        check(r["n_iter_gpu"] == r["n_iter_cpu"], f"distortion {name}: iterations differ")
+        check(r["E_rel_diff"] < DISTORTION_RTOL,
+              f"distortion {name}: E differs by {r['E_rel_diff']:.3e} (limit {DISTORTION_RTOL})")
+    for model in ("radial", "opencv"):
+        check(rec[f"{model}_dense"]["launches_gpu"] == (0, 0),
+              f"distortion {model} dense launched a kernel")
+    k2, k1 = rec["radial_chunked"]["launches_gpu"]
+    check(k2 > 0 and k1 == 0, f"radial chunked on the card: launches (K2, K1) {(k2, k1)}")
+    k2, k1 = rec["opencv_chunked"]["launches_gpu"]
+    check(k1 > 0 and k2 == 0, f"opencv chunked on the card: launches (K2, K1) {(k2, k1)}")
+    for model in ("radial", "opencv"):
+        check(rec[f"{model}_streamed"]["launches_gpu"][1] > 0,
+              f"{model} streamed on the card did not launch syrk_lower")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--points", type=int, default=100_000)
     parser.add_argument("--ba-iters", type=int, default=8)
     parser.add_argument("--streamed-points", type=int, default=1_000_000)
     parser.add_argument("--dense-points", type=int, default=10_000)
+    parser.add_argument("--bal-points", type=int, default=20_000)
     parser.add_argument("--batched-scenes", type=int, default=256)
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
@@ -993,6 +1503,11 @@ def main() -> int:
     check_syrk_lower(torch, sy, 300, 999, args.reps, seed=6)
     check_syrk_lower(torch, sy, 300, 999, args.reps, seed=7, k_major=True)
     check_syrk_lower(torch, sy, 333, 999, args.reps, seed=9, k_major=True)
+    # K1 at the non-fused chunked build's Y (3 * 768, 9 * 1000), K-major as
+    # the build writes it, and its deferred-mirror sum over two chunks
+    k1_build = check_syrk_lower(torch, sy, 3 * CHUNK, 9 * VIEWS, args.reps, seed=10,
+                                k_major=True)
+    syrk_accumulate_check(torch, sy, 3 * CHUNK, 9 * VIEWS, seed=11)
 
     # 4. the pipeline at full width
     config = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=args.ba_iters,
@@ -1039,7 +1554,12 @@ def main() -> int:
     # gross outliers; 4k. the covariance of phase 4's result
     k2_robust = robust_chunked(torch, fs, sy, scene, config)
     covariance_chunked(torch, scene.x.transpose(0, 1), res)
-    del scene, res
+    del res
+    # 4n. the radial model through the fused build, and its covariance; 4o.
+    # the OPENCV model through the non-fused build (K1)
+    k2_distorted = distorted_chunked(torch, fs, sy, scene, config)
+    k1_opencv = opencv_chunked(torch, fs, sy, scene, config)
+    del scene
 
     # 4b. the host-streamed BA at full width: 1M points x 500 views, the
     # (P, F, 2) observations in host memory
@@ -1048,6 +1568,7 @@ def main() -> int:
                                  n_slices=args.streamed_points // 20, n_angles=20,
                                  dtype=torch.float32)
     x_host, X0, K0, R0, t0 = perturbed_start(scene, seed=4)
+    s_truth = true_state(tba, scene)  # 4p renders the distorted problem from it
     del scene
     torch.cuda.empty_cache()
     n_points = x_host.shape[0]
@@ -1103,7 +1624,10 @@ def main() -> int:
     covariance_streamed(torch, x_host, (s_res.X, s_res.K, s_res.R, s_res.t), full_streamed)
     del s_res
     k1_robust = robust_streamed(torch, sy, x_host, (X0, K0, R0, t0), s_cfg, full_streamed)
-    del x_host, X0
+    # 4p. the radial model streamed, re-rendered into the same host array
+    k1_distorted = distorted_streamed(torch, sy, x_host, s_truth, (X0, K0, R0, t0), s_cfg,
+                                      full_streamed)
+    del x_host, X0, s_truth
 
     # 4c. dense BA at the headline's width: 10k points x 100 views, from
     # the true K and R with X and t perturbed by 0.05 N(0, 1)
@@ -1173,6 +1697,9 @@ def main() -> int:
     check(dense_pipe["E_vs_noise_floor"] < 1.5,
           f"dense pipeline E / noise floor {dense_pipe['E_vs_noise_floor']:.3f}")
     check(p_launches == (0, 0), f"dense pipeline launched the SYRK kernels {p_launches}")
+
+    # 4m. scripts/bench_bal.py's distorted problem through the dense core
+    distorted_dense(torch, fs, sy, args.bal_points)
 
     # 4e. the large pipeline with the camera bootstrap, on phase 4's scene
     _, scene = north_star_scenes(torch, make_synthetic_scene, args.points)
@@ -1323,6 +1850,7 @@ def main() -> int:
 
     batched_gpu_vs_cpu(torch, fs, sy, d_cfg)
     robust_gpu_vs_cpu(torch, fs, sy, small, small_cfg)
+    distortion_gpu_vs_cpu(torch, fs, sy)
 
     # 6. result lines
     kernels = [{
@@ -1330,7 +1858,7 @@ def main() -> int:
         "replaces": "mvrecon_tpu/ops/pallas_schur.py:95",
         "launches": launches, "launches_dense_ba": d_launches[0],
         "launches_dense_pipeline": p_launches[0], "launches_bootstrap_pipeline": b_launches,
-        "launches_robust_chunked": k2_robust,
+        "launches_robust_chunked": k2_robust, "launches_distorted_chunked": k2_distorted,
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
@@ -1341,12 +1869,16 @@ def main() -> int:
         "replaces": "mvrecon_tpu/ops/pallas_syrk.py:42",
         "launches": k1_launches, "launches_dense_ba": d_launches[1],
         "launches_dense_pipeline": p_launches[1], "launches_robust_streamed": k1_robust,
+        "launches_opencv_chunked": k1_opencv, "launches_distorted_streamed": k1_distorted,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"], "simt_bound_ms": k1["simt_bound_ms"],
         "max_rel_err": k1["max_rel_err"], "tolerance_rel": 1e-5, "shape": k1["shape"],
         "tflops": k1["tflops"], "design": K1_DESIGN,
+        "at_nonfused_build": {key: k1_build[key] for key in (
+            "shape", "layout", "max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "tflops")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

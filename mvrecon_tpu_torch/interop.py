@@ -20,6 +20,13 @@ def ba_state_from_numpy(X, f, u, t, R, device, dtype) -> BAState:
     return BAState(*(as_tensor(a, dev, dtype) for a in (X, f, u, t, R)))
 
 
+def distortion_from_numpy(dist, like: torch.Tensor) -> torch.Tensor:
+    """A numpy (F, 2) radial or (F, 4) OPENCV distortion as the port's
+    tensor, in the dtype and on the device of ``like`` (the problem's
+    observations or state)."""
+    return as_tensor(dist, like.device, like.dtype)
+
+
 def lm_config_from_fields(fields: dict) -> LMConfig:
     """The port's ``LMConfig`` from the fields of the JAX one
     (``dataclasses.asdict``); unknown fields raise."""
@@ -32,8 +39,9 @@ def lm_config_from_fields(fields: dict) -> LMConfig:
 
 def results_to_numpy(result) -> dict:
     """A result tuple of the port (``BAResult``, ``CalibrationResult``,
-    ``ReconstructionResult``) -> dict of numpy arrays and Python scalars;
-    nested dicts (the logs) are converted the same way."""
+    ``ReconstructionResult``) -> dict of numpy arrays and Python scalars
+    (a ``BAResult``'s ``distortion`` too, None for a pinhole run); nested
+    dicts (the logs) are converted the same way."""
 
     def conv(v):
         if torch.is_tensor(v):

@@ -24,21 +24,31 @@ block is ever formed.
 
 Robust losses (``LMConfig.robust``: huber, cauchy, soft_l1, arctan) run as
 IRLS: each outer iteration reweights every observation from its current
-residual, per lane. Distortion models, the sharded (``axis_name``) variant
-and the ``solver`` hook are not ported yet and raise
-``NotImplementedError``.
+residual, per lane.
+
+Two lens distortion models are ported: BAL radial (k1, k2) and OPENCV
+(k1, k2, p1, p2). The residuals and the rank-2 Jacobian factors chain
+through the model's exact 2x2 Jacobian (:func:`_apply_distortion_chain`),
+so every downstream Schur path is unchanged; ``distortion_rounds``
+alternates a closed-form refit of the model (:func:`fit_distortion`) with
+the geometry LM. Distortion is for one problem, not for lanes. The other
+families (fisheye, full OPENCV, FOV, thin prism), the sharded
+(``axis_name``) variant and the ``solver`` hook are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
 from ..ops.lanes import keep, keep_all, lane_view
-from ..ops.linalg import inv3x3, inv9_spd
+from ..ops.linalg import chol3x3, inv3x3, inv9_spd, inv_lower3
 from ..ops.rotations import rodrigues
+from ..ops.syrk import row_stride
 
 
 class BAState(NamedTuple):
@@ -180,15 +190,16 @@ def _camera_param_derivs(state: BAState, p: torch.Tensor, q: torch.Tensor, r: to
 
 
 def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float, huber_delta=None,
-                   robust_kind: str = "huber"):
+                   robust_kind: str = "huber", dist=None, model: str | None = None):
     """Rank-2 Jacobian factors for a set of points (all of them, or one
     chunk): every second-derivative block is 2 * vis * (a1 (x) b1 +
     a2 (x) b2), so downstream stages work from (a1, a2 (..., C, F, 3);
     b1, b2 (..., C, F, 9); residuals) without materializing the blocks they
-    don't need. Undistorted model. With ``huber_delta`` the IRLS weights of
-    ``robust_kind`` at these residuals multiply into the returned effective
-    visibility, which is then (..., C, F). Returns (a1, a2, b1, b2, res_p,
-    res_q, vis_c)."""
+    don't need. With ``dist`` the residuals and the factors chain through
+    the distortion model (:func:`_apply_distortion_chain`). With
+    ``huber_delta`` the IRLS weights of ``robust_kind`` at these (distorted)
+    residuals multiply into the returned effective visibility, which is
+    then (..., C, F). Returns (a1, a2, b1, b2, res_p, res_q, vis_c)."""
     st = state_cam._replace(X=X_c)
     K = build_K(st.f, st.u, f0)
     pmat, p, q, r = calc_pqr(X_c, K, st.R, st.t)
@@ -210,6 +221,9 @@ def _chunk_factors(state_cam: BAState, X_c, x_c, vis_c, f0: float, huber_delta=N
     del dpdc
     b2 = dqdc.mul_(r_).sub_(q_ * drdc).mul_(inv_r2)
     del dqdc, drdc
+    if dist is not None:
+        res_p, res_q, a1, a2, b1, b2 = _apply_distortion_chain(
+            st, p, q, r, f0, dist, res_p, res_q, a1, a2, b1, b2, model)
     if huber_delta is not None:
         vis_c = vis_c * robust_weight(torch.sqrt(res_p**2 + res_q**2), huber_delta, robust_kind)
     return a1, a2, b1, b2, res_p, res_q, vis_c
@@ -231,11 +245,12 @@ def _point_grad_and_block(a1, a2, res_p, res_q, vis_c):
 
 
 def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float, huber_delta=None,
-                  robust_kind: str = "huber"):
+                  robust_kind: str = "huber", dist=None, model: str | None = None):
     """Derivative blocks for a set of C points: d_P (..., C, 3), the masked
     d_F (..., 9F), matE (..., C, 3, 3), matF (..., C, 3, 9F) with unmasked
     columns, matG (..., F, 9, 9) and the error of these points, all
-    IRLS-weighted with ``huber_delta`` (:func:`_chunk_factors`).
+    IRLS-weighted with ``huber_delta`` and through the distortion model
+    with ``dist`` (:func:`_chunk_factors`).
 
     Each sum over points is written as a contraction over the point axis
     (a batched product over cameras), and matF is written once in place,
@@ -243,7 +258,7 @@ def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float, huber_de
     nf = state_cam.f.shape[-1]
     lead = X_c.shape[:-1]  # (..., C)
     a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(state_cam, X_c, x_c, vis_c, f0,
-                                                         huber_delta, robust_kind)
+                                                         huber_delta, robust_kind, dist, model)
     vis_d = vis_c.expand(res_p.shape)
     e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2), dim=(-2, -1))
 
@@ -265,6 +280,51 @@ def _chunk_blocks(state_cam: BAState, X_c, x_c, vis_c, free, f0: float, huber_de
     return d_P, d_F, matE, matF.view(lead + (3, 9 * nf)), matG, e_chunk
 
 
+def _damped_schur_factor(matE, matF, d_P, c):
+    """The chunk's damped Schur factors of the non-fused builds: with
+    L Lᵀ = matE (1 + c diag), Y = L⁻¹F (3C, 9F) and yd = L⁻¹ d_P (C, 3),
+    so that Fᵀ E_c⁻¹ F = YᵀY and Fᵀ E_c⁻¹ d_P = Yᵀ yd. Returns (Yᵀ (9F, 3C),
+    yd): Yᵀ is written by the product itself in rows that start on
+    128-byte lines, so its transpose Y is K-major, as K1 reads it in place.
+    matF (C, 3, 9F) is not needed afterwards."""
+    linv = inv_lower3(chol3x3(_damp(matE, c)))
+    npts_c, _, nf9 = matF.shape
+    y_t = torch.empty((nf9, row_stride(npts_c * 3)), dtype=matF.dtype,
+                      device=matF.device)[:, :npts_c * 3]
+    torch.bmm(matF.transpose(1, 2), linv.transpose(1, 2),
+              out=y_t.view(nf9, npts_c, 3).transpose(0, 1))
+    return y_t, torch.einsum("pxy,py->px", linv, d_P)
+
+
+def _chunk_backsub(cam: BAState, trial_cam: BAState, X_c, x_c, vis_c, free, c, delta_xi,
+                   f0: float, huber_delta=None, robust_kind: str = "huber", dist=None,
+                   model: str | None = None):
+    """Back-substitute one chunk's point update from the blocks at the
+    current cameras ``cam`` and sum its trial error under ``trial_cam``,
+    both under the current state's IRLS weights with ``huber_delta`` and
+    through the distortion model with ``dist``. F delta_xi factors through
+    the rank-2 blocks, so no (C, 3, 9F) coupling block is formed. Returns
+    (X_new_c, e_trial_c, and the point side of the Nielsen gain ratio's
+    predicted reduction: dDd_c, g_d_c)."""
+    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(cam, X_c, x_c, vis_c, f0,
+                                                         huber_delta, robust_kind, dist, model)
+    d_P, matE = _point_grad_and_block(a1, a2, res_p, res_q, vis_c)
+    einv = inv3x3(_damp(matE, c))
+    nf = cam.f.shape[0]
+    dxi = (delta_xi * free).reshape(nf, 9)
+    vis_d = vis_c.expand(res_p.shape)
+    s1 = vis_d * torch.einsum("pfi,fi->pf", b1, dxi)
+    s2 = vis_d * torch.einsum("pfi,fi->pf", b2, dxi)
+    f_dxi = 2.0 * (torch.einsum("pf,pfx->px", s1, a1) + torch.einsum("pf,pfx->px", s2, a2))
+    delta_x = -torch.einsum("pxy,py->px", einv, f_dxi + d_P)
+    X_new = X_c + delta_x
+    diag_e = torch.diagonal(matE, dim1=-2, dim2=-1)
+    dDd_c = torch.sum(delta_x * diag_e * delta_x)
+    gd_c = torch.sum(d_P * delta_x)
+    e_c = _state_error(trial_cam._replace(X=X_new), x_c, vis_c, f0, dist, model)
+    return X_new, e_c, dDd_c, gd_c
+
+
 class _Derivs(NamedTuple):
     """Derivative blocks of one outer LM iteration."""
 
@@ -275,12 +335,15 @@ class _Derivs(NamedTuple):
     matG: torch.Tensor  # (..., F, 9, 9) camera blocks
 
 
-def _compute_derivs(state: BAState, x, vis, free, f0: float):
-    """All first and second derivative blocks for one outer LM iteration.
-    Returns (derivs, current E). vis is (..., P, F), or a (P, 1) column
-    that broadcasts; under a robust loss it carries the IRLS weights
-    (:func:`_huber_weights`), and E is the weighted one."""
-    d_P, d_F, matE, matF, matG, e_now = _chunk_blocks(state, state.X, x, vis, free, f0)
+def _compute_derivs(state: BAState, x, vis, free, f0: float, dist=None,
+                    model: str | None = None):
+    """All first and second derivative blocks for one outer LM iteration,
+    through the distortion model with ``dist``. Returns (derivs, current
+    E). vis is (..., P, F), or a (P, 1) column that broadcasts; under a
+    robust loss it carries the IRLS weights (:func:`_huber_weights`), and
+    E is the weighted one."""
+    d_P, d_F, matE, matF, matG, e_now = _chunk_blocks(state, state.X, x, vis, free, f0,
+                                                      dist=dist, model=model)
     return _Derivs(d_P=d_P, d_F=d_F, matE=matE, matF=matF.mul_(free), matG=matG), e_now
 
 
@@ -399,27 +462,24 @@ def _apply_update(state: BAState, delta_xi: torch.Tensor, delta_x: torch.Tensor)
     )
 
 
-def _distorted_residual(state: BAState, p, q, r, x, f0: float, dist=None):
-    """(res_p, res_q) from sanitized (p, q, r). Only the undistorted model
-    is ported so far."""
-    if dist is not None:
-        raise NotImplementedError("distortion models are not ported yet")
-    return p / r - x[..., 0] / f0, q / r - x[..., 1] / f0
-
-
-def _residuals(state: BAState, x, vis, f0: float):
-    """Per-observation (res_p, res_q), masked entries sanitized."""
+def _residuals(state: BAState, x, vis, f0: float, dist=None, model: str | None = None):
+    """Per-observation (res_p, res_q), through the distortion model with
+    ``dist``, masked entries sanitized."""
     K = build_K(state.f, state.u, f0)
     _, p, q, r = calc_pqr(state.X, K, state.R, state.t)
     r = torch.where(vis > 0, r, torch.ones_like(r))
-    return _distorted_residual(state, p, q, r, x, f0)
+    return _distorted_residual(state, p, q, r, x, f0, dist, model)
 
 
-def _state_error(state: BAState, x, vis, f0: float) -> torch.Tensor:
+def _state_error(state: BAState, x, vis, f0: float, dist=None,
+                 model: str | None = None) -> torch.Tensor:
     """Reprojection error E of ``state`` over the observations x
-    (..., P, F, 2), per lane."""
-    _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
-    return reprojection_error(x, p, q, r, vis, f0)
+    (..., P, F, 2), per lane; through the distortion model with ``dist``."""
+    if dist is None:
+        _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
+        return reprojection_error(x, p, q, r, vis, f0)
+    res_p, res_q = _residuals(state, x, vis, f0, dist, model)
+    return torch.sum(vis * (res_p**2 + res_q**2), dim=(-2, -1))
 
 
 ROBUST_LOSSES = ("huber", "cauchy", "soft_l1", "arctan")
@@ -457,25 +517,332 @@ def robust_weight(mag: torch.Tensor, delta: float, kind: str = "huber") -> torch
     raise ValueError(f"unknown robust loss: {kind!r} (use {ROBUST_LOSSES})")
 
 
+DISTORTION_MODELS = ("radial", "opencv", "fisheye", "full_opencv", "fov", "thin_prism")
+_DISTORTION_NCOLS = {"radial": 2, "opencv": 4, "fisheye": 4, "full_opencv": 8, "fov": 1,
+                     "thin_prism": 8}
+PORTED_DISTORTION_MODELS = ("radial", "opencv")
+
+
+def resolve_distortion_model(dist, model: str | None = "auto") -> str:
+    """Concrete distortion-model name from (columns, requested model).
+    "auto" (``LMConfig.distortion_model``'s default) keeps the column-count
+    convention: (F, 2) BAL radial, (F, 4) OPENCV, (F, 1) FOV, (F, 8) full
+    OPENCV. OPENCV_FISHEYE also has 4 parameters, so it must be asked for
+    by name. An unknown name or a column count that does not fit raises
+    ``ValueError``."""
+    if model in (None, "auto"):
+        if dist is None:
+            return "radial"
+        n = int(dist.shape[-1])
+        names = {1: "fov", 2: "radial", 4: "opencv", 8: "full_opencv"}
+        if n not in names:
+            raise ValueError(f"distortion must have 1, 2, 4, or 8 columns, got {n}")
+        return names[n]
+    if model not in DISTORTION_MODELS:
+        raise ValueError(f"unknown distortion model: {model!r}")
+    if dist is not None and int(dist.shape[-1]) != _DISTORTION_NCOLS[model]:
+        raise ValueError(f"{model} distortion expects {_DISTORTION_NCOLS[model]} columns, "
+                         f"got {dist.shape[-1]}")
+    return model
+
+
+def check_distortion_ported(model: str) -> None:
+    """``NotImplementedError`` naming ``model`` unless the port has it."""
+    if model not in PORTED_DISTORTION_MODELS:
+        raise NotImplementedError(f"the {model} distortion model is not ported yet "
+                                  f"(ported: {', '.join(PORTED_DISTORTION_MODELS)})")
+
+
+def default_distortion(model: str, nf: int, dtype, device=None) -> torch.Tensor:
+    """Refit-from-scratch initial distortion: zero for the polynomial
+    families (the FOV angle, not ported, starts at 0.5 rad)."""
+    if model == "fov":
+        return torch.full((nf, 1), 0.5, dtype=dtype, device=device)
+    return torch.zeros((nf, _DISTORTION_NCOLS[model]), dtype=dtype, device=device)
+
+
+def distortion_nterms(model: str) -> int:
+    """Columns of the per-camera normal-equation accumulands of the
+    closed-form refit (:func:`_distortion_lsq_terms`)."""
+    return {"radial": 5, "full_opencv": 30, "fov": 2, "thin_prism": 72}.get(model, 20)
+
+
+def _per_camera(v: torch.Tensor) -> torch.Tensor:
+    """(..., F) per-camera values -> (..., 1, F), broadcasting over points."""
+    return v[..., None, :]
+
+
+def _distortion_terms(state: BAState, p, q, r, f0: float, dist, model: str | None = None):
+    """Per-observation radial quantities (g1, g2, s, d, wu): the distorted
+    prediction is ``d g + u/f0`` with g = (p/r, q/r) - u/f0, and the exact
+    2x2 Jacobian chain is ``D = d I + wu (f0/f)^2 g g^T``.
+
+    BAL radial (``runtime/io.py::load_bal`` in the JAX package): pixel =
+    f d(s) rho on the normalized ray rho, d = 1 + k1 s + k2 s^2 with
+    s = |rho|^2 = (f0/f)^2 |g|^2, and wu = 2 dd/ds. OPENCV shares this
+    radial part (its tangential shift is :func:`_tangential_terms`). ``r``
+    must already be sanitized (nonzero where masked)."""
+    model = resolve_distortion_model(dist, model)
+    check_distortion_ported(model)
+    g1 = p / r - _per_camera(state.u[..., 0] / f0)
+    g2 = q / r - _per_camera(state.u[..., 1] / f0)
+    s = _per_camera((f0 / state.f) ** 2) * (g1 * g1 + g2 * g2)
+    k1 = _per_camera(dist[..., 0])
+    k2 = _per_camera(dist[..., 1])
+    d = 1.0 + s * (k1 + s * k2)
+    wu = 2.0 * (k1 + 2.0 * k2 * s)
+    return g1, g2, s, d, wu
+
+
+def _tangential_terms(state: BAState, g1, g2, f0: float, dist):
+    """The OPENCV tangential shift (t1, t2) = c h(g), c = f0/f, of
+    (p1, p2) (``dist`` (F, 4) = (k1, k2, p1, p2)), and its symmetric
+    Jacobian wrt g (T11, T12, T22), which adds onto the radial 2x2 chain;
+    c's 1/f is the one extra camera dependence (the -t/f term of the f
+    column)."""
+    c = _per_camera(f0 / state.f)
+    p1 = _per_camera(dist[..., 2])
+    p2 = _per_camera(dist[..., 3])
+    g11, g22, g12 = g1 * g1, g2 * g2, g1 * g2
+    t1 = c * (2.0 * p1 * g12 + p2 * (3.0 * g11 + g22))
+    t2 = c * (p1 * (g11 + 3.0 * g22) + 2.0 * p2 * g12)
+    t11 = 2.0 * c * (p1 * g2 + 3.0 * p2 * g1)
+    t12 = 2.0 * c * (p1 * g1 + p2 * g2)
+    t22 = 2.0 * c * (3.0 * p1 * g2 + p2 * g1)
+    return t1, t2, t11, t12, t22
+
+
+def _apply_distortion_chain(state: BAState, p, q, r, f0: float, dist, res_p, res_q, a1, a2,
+                            b1, b2, model: str | None = None):
+    """The residuals and the rank-2 Jacobian factors through the distortion
+    model (the dense and the chunked derivative builds share it).
+
+    The distorted prediction is d g + u/f0, plus the tangential shift t(g)
+    under OPENCV. The residual gains (d - 1) g (+ t); the point rows
+    (a, (..., C, F, 3)) chain through the 2x2 Jacobian D = d I +
+    wu (f0/f)^2 g g^T (+ dt/dg, also symmetric) verbatim; the camera rows
+    (b, (..., C, F, 9)) differ from dg/dtheta in the u columns (dg/du =
+    dpi/du - 1/f0, and the prediction adds its own +1/f0 back) and the f
+    column (s and c depend on f directly: -(wu s / f) g - t/f). b1 and b2
+    are overwritten."""
+    model = resolve_distortion_model(dist, model)
+    g1, g2, s, d, wu = _distortion_terms(state, p, q, r, f0, dist, model)
+    tangential = model == "opencv"
+    res_p = res_p + (d - 1.0) * g1
+    res_q = res_q + (d - 1.0) * g2
+    cw = wu * _per_camera(f0 / state.f) ** 2
+    d11 = d + cw * g1 * g1
+    d12 = cw * g1 * g2
+    d22 = d + cw * g2 * g2
+    if tangential:
+        t1, t2, t11, t12, t22 = _tangential_terms(state, g1, g2, f0, dist)
+        res_p = res_p + t1
+        res_q = res_q + t2
+        d11 = d11 + t11
+        d12 = d12 + t12
+        d22 = d22 + t22
+    d11, d12, d22 = d11[..., None], d12[..., None], d22[..., None]
+    a1, a2 = d11 * a1 + d12 * a2, d12 * a1 + d22 * a2
+    inv_f0 = 1.0 / f0
+    b1[..., 1] -= inv_f0  # b -> dg/dtheta (u columns only)
+    b2[..., 2] -= inv_f0
+    b1, b2 = d11 * b1 + d12 * b2, d12 * b1 + d22 * b2
+    b1[..., 1] += inv_f0  # + d(u/f0)/du
+    b2[..., 2] += inv_f0
+    cf = wu * s / _per_camera(state.f)  # -(wu s / f) g on the f column
+    b1[..., 0] -= cf * g1
+    b2[..., 0] -= cf * g2
+    if tangential:
+        inv_f = 1.0 / _per_camera(state.f)  # -t/f: c = f0/f explicit in t
+        b1[..., 0] -= t1 * inv_f
+        b2[..., 0] -= t2 * inv_f
+    return res_p, res_q, a1, a2, b1, b2
+
+
+def _distorted_residual(state: BAState, p, q, r, x, f0: float, dist=None,
+                        model: str | None = None):
+    """(res_p, res_q) through the distortion model from sanitized
+    (p, q, r): the trial-error expression shared by the cores."""
+    res_p = p / r - x[..., 0] / f0
+    res_q = q / r - x[..., 1] / f0
+    if dist is None:
+        return res_p, res_q
+    model = resolve_distortion_model(dist, model)
+    g1, g2, _, d, _ = _distortion_terms(state, p, q, r, f0, dist, model)
+    res_p = res_p + (d - 1.0) * g1
+    res_q = res_q + (d - 1.0) * g2
+    if model == "opencv":
+        t1, t2, _, _, _ = _tangential_terms(state, g1, g2, f0, dist)
+        res_p = res_p + t1
+        res_q = res_q + t2
+    return res_p, res_q
+
+
 def _huber_weights(state: BAState, x, vis, f0: float, delta: float,
-                   robust_kind: str = "huber") -> torch.Tensor:
+                   robust_kind: str = "huber", dist=None, model: str | None = None):
     """vis times the IRLS weights of ``robust_kind`` at the current
-    residuals, (..., P, F): multiplied into the visibility, gross outliers
-    stop dominating the normal equations."""
-    res_p, res_q = _residuals(state, x, vis, f0)
+    (distorted, with ``dist``) residuals, (..., P, F): multiplied into the
+    visibility, gross outliers stop dominating the normal equations."""
+    res_p, res_q = _residuals(state, x, vis, f0, dist, model)
     return vis * robust_weight(torch.sqrt(res_p**2 + res_q**2), delta, robust_kind)
 
 
-def _check_ported(config: LMConfig, axis_name=None, dist=None, solver=None) -> None:
-    """Raise for the options whose code is not ported yet, and
-    ``ValueError`` for an unknown loss name (``resolve_robust``)."""
+def fit_distortion(state: BAState, x, vis, f0: float, shared: bool = False,
+                   tangential: bool = False, model: str | None = None) -> torch.Tensor:
+    """Closed-form per-camera distortion refit at the current geometry.
+
+    The BAL radial prediction (1 + k1 s + k2 s^2) g + u/f0 is linear in
+    (k1, k2), so the least-squares distortion for the state is a 2x2
+    normal-equation solve per camera; the OPENCV prediction is linear in
+    (k1, k2, p1, p2) too, a 4x4 solve (``tangential=True`` or
+    ``model="opencv"``). ``shared=True`` ties the parameters across the
+    cameras: the per-camera normal equations sum into one system. A
+    camera whose system is degenerate gets zeros."""
+    if model is None:
+        model = "opencv" if tangential else "radial"
+    check_distortion_ported(model)
+    _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
+    return _solve_distortion_lsq(_distortion_lsq_terms(state, p, q, r, x, vis, f0, model), shared)
+
+
+def _distortion_lsq_terms(state: BAState, p, q, r, x, vis, f0: float, model="radial"):
+    """Per-camera normal-equation accumulands of the linear-in-k fit, a sum
+    over points (so the chunked and streamed cores add them up chunk by
+    chunk): (F, 5) = (a11, a12, a22, b1, b2) for radial, (F, 20) = (the
+    4x4 normal matrix by rows, the 4 rhs) for OPENCV. vis is (P, F) or a
+    (P, 1) column. ``model`` also takes the bool ``tangential``."""
+    if isinstance(model, bool):
+        model = "opencv" if model else "radial"
+    elif model is None:
+        model = "radial"
+    check_distortion_ported(model)
+    vis = vis.expand(p.shape)
+    r = torch.where(vis > 0, r, torch.ones_like(r))
+    u1, u2 = _per_camera(state.u[..., 0] / f0), _per_camera(state.u[..., 1] / f0)
+    g1 = p / r - u1
+    g2 = q / r - u2
+    s = _per_camera((f0 / state.f) ** 2) * (g1 * g1 + g2 * g2)
+    # the target: what the distortion shift must explain, (x - u)/f0 - g
+    t1 = x[..., 0] / f0 - u1 - g1
+    t2 = x[..., 1] / f0 - u2 - g2
+    if model == "radial":
+        gg = g1 * g1 + g2 * g2
+        gt = g1 * t1 + g2 * t2
+        s2 = s * s
+        return torch.stack([
+            torch.sum(vis * s2 * gg, dim=-2),
+            torch.sum(vis * s2 * s * gg, dim=-2),
+            torch.sum(vis * s2 * s2 * gg, dim=-2),
+            torch.sum(vis * s * gt, dim=-2),
+            torch.sum(vis * s2 * gt, dim=-2),
+        ], dim=-1)
+    # OPENCV regressors, a 2-vector each per observation: the shift is
+    # k1 A1 + k2 A2 + p1 A3 + p2 A4 (A3, A4 as in _tangential_terms)
+    c = _per_camera(f0 / state.f)
+    g11, g22, g12 = g1 * g1, g2 * g2, g1 * g2
+    A = torch.stack([
+        torch.stack([s * g1, s * g2], dim=-1),
+        torch.stack([s * s * g1, s * s * g2], dim=-1),
+        torch.stack([2.0 * c * g12, c * (g11 + 3.0 * g22)], dim=-1),
+        torch.stack([c * (3.0 * g11 + g22), 2.0 * c * g12], dim=-1),
+    ], dim=-2)  # (..., P, F, 4, 2)
+    T = torch.stack([t1, t2], dim=-1)
+    m = torch.einsum("...pfai,...pfbi,...pf->...fab", A, A, vis)
+    rhs = torch.einsum("...pfai,...pfi,...pf->...fa", A, T, vis)
+    return torch.cat([m.reshape(m.shape[:-2] + (16,)), rhs], dim=-1)
+
+
+def _chunk_distortion_terms(cam: BAState, X_c, x_c, vis_c, f0: float, dist, model: str,
+                            huber_delta=None, robust_kind: str = "huber"):
+    """One chunk's normal-equation contribution to the closed-form refit
+    (:func:`_distortion_lsq_terms`), IRLS-weighted with ``huber_delta`` by
+    the residuals of the current model ``dist``."""
+    _, p, q, r = calc_pqr(X_c, build_K(cam.f, cam.u, f0), cam.R, cam.t)
+    r = torch.where(vis_c > 0, r, torch.ones_like(r))
+    if huber_delta is not None:
+        res_p, res_q = _distorted_residual(cam, p, q, r, x_c, f0, dist, model)
+        vis_c = vis_c * robust_weight(torch.sqrt(res_p**2 + res_q**2), huber_delta, robust_kind)
+    return _distortion_lsq_terms(cam, p, q, r, x_c, vis_c, f0, model)
+
+
+def _solve_distortion_lsq(terms: torch.Tensor, shared: bool) -> torch.Tensor:
+    """Distortion from the accumulated normal terms: (F, 5) -> radial
+    (F, 2) by the closed-form 2x2 solve, (F, 20) -> OPENCV (F, 4). A
+    camera whose determinant is not above the dtype's smallest normal
+    number gets zeros."""
+    if terms.shape[-1] == 20:
+        return _solve_distortion_lsq4(terms, shared)
+    if shared:
+        terms = torch.sum(terms, dim=0, keepdim=True).expand(terms.shape)
+    a11, a12, a22, b1, b2 = terms.unbind(-1)
+    det = a11 * a22 - a12 * a12
+    safe = det > torch.finfo(terms.dtype).tiny
+    det_s = torch.where(safe, det, torch.ones_like(det))
+    zero = torch.zeros_like(det)
+    k1 = torch.where(safe, (b1 * a22 - b2 * a12) / det_s, zero)
+    k2 = torch.where(safe, (b2 * a11 - b1 * a12) / det_s, zero)
+    return torch.stack([k1, k2], dim=-1)
+
+
+def _solve_distortion_lsq4(terms: torch.Tensor, shared: bool) -> torch.Tensor:
+    """(F, 4) OPENCV distortion from the accumulated (F, 20) terms."""
+    return _solve_distortion_lsq_n(terms, 4, shared)
+
+
+def _solve_distortion_lsq_n(terms: torch.Tensor, n: int, shared: bool) -> torch.Tensor:
+    """(F, n) distortion from accumulated (F, n^2 + n) normal terms, an
+    n x n solve per camera. A camera whose matrix has no positive trace
+    solves the identity instead, and one whose solution is not finite gets
+    zeros, as in the JAX package. The solve is ``solve_ex``: a singular
+    matrix in the batch gives that camera a non-finite solution (and a
+    nonzero ``info``), never an exception for the whole batch."""
+    nf = terms.shape[0]
+    if shared:
+        terms = torch.sum(terms, dim=0, keepdim=True).expand(terms.shape)
+    m = terms[:, : n * n].reshape(nf, n, n)
+    rhs = terms[:, n * n:]
+    tr = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+    safe = tr > torch.finfo(terms.dtype).tiny
+    eye = torch.eye(n, dtype=m.dtype, device=m.device)
+    m_s = torch.where(safe[:, None, None], m, eye)
+    sol, info = torch.linalg.solve_ex(m_s, rhs[..., None])
+    sol = sol[..., 0]
+    ok = safe & (info == 0) & torch.isfinite(sol).all(dim=-1)
+    return torch.where(ok[:, None], sol, torch.zeros_like(sol))
+
+
+def _check_ported(config: LMConfig, axis_name=None, dist=None, solver=None) -> str:
+    """Raise for the options whose code is not ported yet: the sharded
+    cores, the solver hook, and a distortion model other than radial and
+    OPENCV when the run models distortion (``dist`` given or
+    ``distortion_rounds > 0``), with ``NotImplementedError`` naming the
+    model. An unknown loss or model name or a column count that does not
+    fit the model raises ``ValueError``. Returns the resolved model name."""
     if axis_name is not None:
         raise NotImplementedError("the sharded cores are not ported yet")
     if solver is not None:
         raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet")
+    model = resolve_distortion_model(dist, config.distortion_model)
     if dist is not None or config.distortion_rounds > 0:
-        raise NotImplementedError("distortion models are not ported yet")
+        check_distortion_ported(model)
     resolve_robust(config.robust)
+    return model
+
+
+def _prepare_distortion(distortion, config: LMConfig, nf: int, lane_dims: int, dtype, device):
+    """(dist, model) of a run: the caller's distortion as a (F, n) tensor
+    in the problem's dtype and on its device, or the refit's zero start
+    when ``distortion_rounds > 0`` and none is given; dist is None for a
+    pinhole run. Distortion is for one problem: with lane dimensions it
+    raises ``ValueError``, as the JAX package's batched paths take none."""
+    model = _check_ported(config, dist=distortion)
+    if distortion is None and config.distortion_rounds <= 0:
+        return None, model
+    if lane_dims:
+        raise ValueError("distortion is for one problem; the lanes take none")
+    if distortion is None:
+        return default_distortion(model, nf, dtype, device), model
+    return as_tensor(distortion, device, dtype), model
 
 
 def lm_step(x, state: BAState, vis, free, f0: float, c):
@@ -517,7 +884,7 @@ class LMOutcome(NamedTuple):
 
 
 def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=None,
-             init_nu=None) -> LMOutcome:
+             init_nu=None, dist=None, model: str | None = None) -> LMOutcome:
     """The Levenberg–Marquardt loop over lanes: problems stacked along the
     leading dimensions of ``state0`` (none for one problem), each with its
     own damping, accept decisions and stop, as ``vmap`` runs the JAX
@@ -541,6 +908,9 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
     use those weights, so the E carried and returned is the weighted one
     of the lane's last iteration, as in the JAX ``lm_optimize``.
 
+    With ``dist`` (one problem, no lanes) every residual, block and error
+    goes through the distortion model, held fixed.
+
     Where the JAX loop would run a lane whose E is NaN to ``max_iter``
     (``NaN <= delta_tol`` is false), this one stops it after its first
     iteration, which accepts nothing; a finite lane runs the same
@@ -550,7 +920,7 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
     nielsen = config.damping == "nielsen"
     robust_kind = resolve_robust(config.robust)
     state = state0
-    e_prev = _state_error(state0, x, vis, f0)
+    e_prev = _state_error(state0, x, vis, f0, dist, model)
     run = torch.ones(lanes, dtype=torch.bool, device=dev)  # lanes still iterating
     history = [(state0, e_prev, run)] if config.record_log else None
     c = as_tensor(config.init_damping if init_c is None else init_c, dev, dt).expand(lanes)
@@ -560,8 +930,9 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
     while count < config.max_iter:
         vis_it = vis
         if robust_kind is not None:
-            vis_it = _huber_weights(state, x, vis, f0, config.huber_delta, robust_kind)
-        derivs, e_w = _compute_derivs(state, x, vis_it, free, f0)
+            vis_it = _huber_weights(state, x, vis, f0, config.huber_delta, robust_kind, dist,
+                                    model)
+        derivs, e_w = _compute_derivs(state, x, vis_it, free, f0, dist, model)
         # the accept and stop baseline: the E under this iteration's weights
         e_base = e_prev if robust_kind is None else keep(run, e_w, e_prev)
         accepted = ~run  # finished lanes take no trial
@@ -571,7 +942,7 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
             retry = ~accepted
             delta_xi, delta_x = _damped_solve(derivs, c, free)
             cand = _apply_update(state, delta_xi, delta_x)
-            e_cand = _state_error(cand, x, vis_it, f0)
+            e_cand = _state_error(cand, x, vis_it, f0, dist, model)
             acc_t = e_cand <= e_base
             pred = _predicted_reduction(derivs, delta_xi, delta_x, c) if nielsen else None
             c, nu = keep_all(retry, _lm_damping(config, acc_t, c, nu, e_base, e_cand, pred),
@@ -619,8 +990,9 @@ def lm_optimize(x, state0: BAState, vis, free, f0: float, config: LMConfig, axis
     Returns (state, error, c, nu, n_iter, log): with ``config.record_log``
     the log holds "points", "basis", "pos" and "reprojection_error" stacked
     over max_iter + 1 rows (zero past the last iteration), else None."""
-    _check_ported(config, axis_name, dist, solver)
-    out = lm_lanes(x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu)
+    model = _check_ported(config, axis_name, dist, solver)
+    out = lm_lanes(x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu, dist=dist,
+                   model=model)
     return out.state, out.error, out.c, out.nu, out.n_iter, out.log
 
 
@@ -692,14 +1064,51 @@ def bundle_adjust(
     lane. Runs on the card unless ``device`` says otherwise; the working
     dtype is x's. The returned ``log`` always carries the final damping
     (c, nu), so a segmented run resumes through ``init_c``/``init_nu``,
-    and the retries the lanes took together (``n_solver_retries``)."""
-    _check_ported(config, dist=distortion)
+    and the retries the lanes took together (``n_solver_retries``, summed
+    over every LM segment).
+
+    ``distortion`` (one problem only): (F, 2) BAL radial (k1, k2) or
+    (F, 4) OPENCV (k1, k2, p1, p2) (``resolve_distortion_model`` with
+    ``config.distortion_model``), held fixed unless
+    ``config.distortion_rounds`` > 0. Then each of those rounds first
+    refits it in closed form at the current geometry (:func:`fit_distortion`,
+    per camera or ``distortion_shared``, under a robust loss with the IRLS
+    weights of the current distorted residuals) and then runs an LM
+    segment; a last segment follows the last refit. With no
+    ``distortion`` the refit starts from zero. ``n_iter`` counts every
+    segment, the log covers the last one, and the result carries the
+    final ``distortion``. Distortion is invariant under the similarity
+    gauge, so it is neither normalized nor restored."""
     x, vis, state0, free, info = _prepare_problem(
         x, init_X, init_K, init_R, init_t, f0, visibility, axis, device
     )
-    out = lm_lanes(x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu)
+    dist, model = _prepare_distortion(distortion, config, x.shape[-2], x.dim() - 3, x.dtype,
+                                      x.device)
+    robust_kind = resolve_robust(config.robust)
+    seg_cfg = dataclasses.replace(config, record_log=False)
+    c_seg, nu_seg = init_c, init_nu
+    n_seg_total = retries = 0
+    for _ in range(config.distortion_rounds):
+        # refit first: LM before the first refit walks the free geometry
+        # into the basin that absorbs the distortion (the JAX package's
+        # measurement)
+        vis_fit = vis
+        if robust_kind is not None:
+            vis_fit = _huber_weights(state0, x, vis, f0, config.huber_delta, robust_kind, dist,
+                                     model)
+        dist = fit_distortion(state0, x, vis_fit, f0, shared=config.distortion_shared,
+                              model=model)
+        seg = lm_lanes(x, state0, vis, free, f0, seg_cfg, init_c=c_seg, init_nu=nu_seg,
+                       dist=dist, model=model)
+        state0, c_seg, nu_seg = seg.state, seg.c, seg.nu
+        n_seg_total += seg.n_iter
+        retries += seg.retries
+    out = lm_lanes(x, state0, vis, free, f0, config, init_c=c_seg, init_nu=nu_seg, dist=dist,
+                   model=model)
     final = out.state
     Xg, Rg, tg = restore_gauge(info, final.X, final.R, final.t)
     return BAResult(X=Xg, K=build_K(final.f, final.u, f0), R=Rg, t=tg, error=out.error,
-                    n_iter=out.n_iter, log={**(out.log or {}), "c": out.c, "nu": out.nu,
-                                            "n_solver_retries": out.retries})
+                    n_iter=out.n_iter + n_seg_total,
+                    log={**(out.log or {}), "c": out.c, "nu": out.nu,
+                         "n_solver_retries": out.retries + retries},
+                    distortion=dist)

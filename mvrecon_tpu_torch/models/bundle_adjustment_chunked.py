@@ -1,11 +1,18 @@
 """Chunk-streamed bundle adjustment for the 100k-point regime.
 
-Counterpart of ``mvrecon_tpu/models/bundle_adjustment_chunked.py``, fused
-path: per LM retry one pass over point chunks builds the reduced camera
-system through ``ops/fused_schur.py`` (the K2 kernel on the card), one
+Counterpart of ``mvrecon_tpu/models/bundle_adjustment_chunked.py``: per LM
+retry one pass over point chunks builds the reduced camera system, one
 Cholesky solve gives the camera step, and a second pass back-substitutes
 each chunk's point update and sums the trial error. Only one chunk's
 derivative planes live at a time.
+
+Two builds: the fused one (``ops/fused_schur.py``, the K2 kernel on the
+card) runs the pinhole and the BAL radial models; the OPENCV model, whose
+tangential chain the fused planes do not carry, takes the non-fused build
+(``_build_system``): per chunk the camera-major blocks, Y = L⁻¹F written
+K-major, and K1's lower tiles of YᵀY summed into one accumulator that is
+mirrored once after the chunks. On the card a float32 Y goes through K1
+or raises; there is no library product in its place.
 
 The damping protocol, stopping rules and gauge are the JAX package's: the
 reference and Nielsen schedules with the c <= 1e25 / nu <= 1e12 clamps,
@@ -16,18 +23,23 @@ as ``cho_factor``'s NaNs do there. The per-chunk scalars stay on the
 device; the host reads the accept flag once per retry.
 
 The non-fused per-chunk blocks (``_chunk_factors``, ``_point_grad_and_block``,
-``_chunk_blocks`` in ``bundle_adjustment.py``) serve the dense and the
-host-streamed cores; the non-fused chunked build over them waits for the
-distortion slice.
+``_chunk_blocks``, ``_damped_schur_factor``, ``_chunk_backsub`` in
+``bundle_adjustment.py``) serve the non-fused build, the dense and the
+host-streamed cores.
 
 Robust losses run as IRLS, as in the JAX package: every retry's build
 weights each observation from its residual at the current state, and the
 accept test, the Nielsen gain ratio and the stop test compare with the
-weighted E that build returns. Distortion and the sharded (``axis_name``)
-variant are not ported yet and raise ``NotImplementedError``.
+weighted E that build returns. ``distortion_rounds`` alternates the
+closed-form refit (``fit_distortion_chunked``, one pass over the chunks)
+with LM segments, as the dense core does. The fisheye, full OPENCV, FOV and
+thin prism models and the sharded (``axis_name``) variant are not ported
+yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -40,16 +52,28 @@ from ..ops.fused_schur import (
     schur_acc_dim,
     type_major_to_camera_major,
 )
+from ..ops.syrk import finish_syrk_accumulator, syrk_accumulator_dim, syrk_lower_accumulate
 from .bundle_adjustment import (
     BAResult,
     BAState,
     _apply_update,
     _check_ported,
     _chol_solve,
+    _chunk_backsub,
+    _chunk_blocks,
+    _damp,
+    _chunk_distortion_terms,
+    _damped_schur_factor,
     _lm_damping,
+    _prepare_distortion,
     _prepare_problem,
+    _reduced_camera_system,
+    _solve_distortion_lsq,
     _state_error,
     build_K,
+    check_distortion_ported,
+    distortion_nterms,
+    resolve_distortion_model,
     resolve_robust,
     restore_gauge,
 )
@@ -66,9 +90,9 @@ def _kadd(acc, x):
 
 
 def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None,
-                        robust_kind="huber"):
+                        robust_kind="huber", dist=None):
     """Fused generate-and-reduce build over the chunks, IRLS-weighted with
-    ``huber_delta``.
+    ``huber_delta`` and through the radial model with ``dist``.
 
     Returns (A', b', E_now (weighted with ``huber_delta``), (diag_g, d_F),
     free_tm) in type-major layout."""
@@ -84,7 +108,7 @@ def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None,
     e_acc = (zero, zero)
     for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
         acc, d_F, matG, e_chunk, b_p = fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0, c,
-                                                          huber_delta, robust_kind)
+                                                          huber_delta, robust_kind, dist)
         g = g + matG
         d_f = d_f + d_F
         e_acc = _kadd(e_acc, e_chunk)
@@ -95,20 +119,67 @@ def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None,
     return a, b, e_acc[0], (diag_g, d_f), free_tm
 
 
+def _build_system(cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None,
+                  robust_kind="huber", dist=None, model=None):
+    """Non-fused build over the chunks, camera-major: per chunk the blocks
+    (IRLS-weighted with ``huber_delta``, through the distortion model with
+    ``dist``), Y = L⁻¹F and yd = L⁻¹ d_P (``_damped_schur_factor``), and
+    K1's lower tiles of YᵀY added into one accumulator; one mirror after
+    the chunks (``finish_syrk_accumulator``).
+
+    Returns (A (9F, 9F) damped, with identity rows on the gauge-fixed
+    parameters, b (9F,), E_now (weighted with ``huber_delta``),
+    (diag_g, d_F))."""
+    nf = cam.f.shape[0]
+    nf9 = 9 * nf
+    dt = x_ch[0].dtype
+    dev = x_ch[0].device
+    n_acc = syrk_accumulator_dim(nf9)
+    acc = torch.zeros((n_acc, n_acc), dtype=dt, device=dev)
+    b_p = torch.zeros((nf9,), dtype=dt, device=dev)
+    g = torch.zeros((nf, 9, 9), dtype=dt, device=dev)
+    d_f = torch.zeros((nf9,), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    e_acc = (zero, zero)
+    for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
+        d_P, d_F, matE, matF, matG, e_chunk = _chunk_blocks(cam, X_c, x_c, vis_c, free, f0,
+                                                            huber_delta, robust_kind, dist, model)
+        y_t, yd = _damped_schur_factor(matE, matF, d_P, c)
+        del matF
+        syrk_lower_accumulate(acc, y_t.T)
+        b_p = b_p + y_t @ yd.reshape(-1)
+        g = g + matG
+        d_f = d_f + d_F
+        e_acc = _kadd(e_acc, e_chunk)
+    schur = finish_syrk_accumulator(acc, nf9)
+    del acc
+    a = _reduced_camera_system(schur, _damp(g, c), free)
+    diag_g = torch.diagonal(g, dim1=-2, dim2=-1).reshape(-1)  # (9F,) undamped
+    return a, b_p - d_f, e_acc[0], (diag_g, d_f)
+
+
 def _backsub_and_trial(cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi,
-                       huber_delta=None, robust_kind="huber"):
+                       huber_delta=None, robust_kind="huber", dist=None, model=None,
+                       fused=True):
     """Per chunk: back-substitute the point update at the current state and
     sum the trial error under the updated cameras (under the current
-    state's IRLS weights with ``huber_delta``).
+    state's IRLS weights with ``huber_delta``, through the distortion model
+    with ``dist``), from the type-major planes (``fused``) or the
+    camera-major factors.
 
     Returns (X_new chunks, E_trial, dDd_pts, g_d_pts)."""
     zero = torch.zeros((), dtype=x_ch[0].dtype, device=x_ch[0].device)
     e_acc = dDd_acc = gd_acc = (zero, zero)
     X_new = []
     for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
-        X_n, e_c, dDd_c, gd_c = fused_backsub_chunk(
-            cam, trial_cam, X_c, x_c, vis_c, f0, c, delta_xi * free, huber_delta, robust_kind
-        )
+        if fused:
+            X_n, e_c, dDd_c, gd_c = fused_backsub_chunk(
+                cam, trial_cam, X_c, x_c, vis_c, f0, c, delta_xi * free, huber_delta,
+                robust_kind, dist)
+        else:
+            X_n, e_c, dDd_c, gd_c = _chunk_backsub(cam, trial_cam, X_c, x_c, vis_c, free, c,
+                                                   delta_xi, f0, huber_delta, robust_kind, dist,
+                                                   model)
         X_new.append(X_n)
         e_acc, dDd_acc, gd_acc = _kadd(e_acc, e_c), _kadd(dDd_acc, dDd_c), _kadd(gd_acc, gd_c)
     return X_new, e_acc[0], dDd_acc[0], gd_acc[0]
@@ -137,11 +208,15 @@ def lm_optimize_chunked(
     init_nu=None,
     dist=None,
 ):
-    """Chunk-streamed LM with the dense core's protocol. Returns
-    (state, error, c, nu, n_iter, total_solver_retries, log): the log is
-    ``{"reprojection_error": (max_iter + 1,)}`` with ``config.record_log``
-    (zero past the last iteration), else None."""
-    _check_ported(config, axis_name, dist)
+    """Chunk-streamed LM with the dense core's protocol, through the
+    distortion model ``dist`` (held fixed) when given. The fused build
+    runs the pinhole and the radial model, the non-fused build (K1 on the
+    card) the OPENCV model. Returns (state, error, c, nu, n_iter,
+    total_solver_retries, log): the log is ``{"reprojection_error":
+    (max_iter + 1,)}`` with ``config.record_log`` (zero past the last
+    iteration), else None."""
+    model = _check_ported(config, axis_name, dist)
+    fused = dist is None or model == "radial"
     npts = x.shape[0]
     dt = x.dtype
     dev = x.device
@@ -158,7 +233,7 @@ def lm_optimize_chunked(
 
     e_prev = torch.zeros((), dtype=dt, device=dev)
     for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
-        e_prev = e_prev + _state_error(cam._replace(X=X_c), x_c, vis_c, f0)
+        e_prev = e_prev + _state_error(cam._replace(X=X_c), x_c, vis_c, f0, dist, model)
 
     log_e = [e_prev] if config.record_log else None
     nielsen = config.damping == "nielsen"
@@ -175,18 +250,24 @@ def lm_optimize_chunked(
         tries = 0
         e_base = e_prev
         while not accepted and tries < config.max_inner_retries:
-            a, b, e_w, (diag_g, d_f), free_tm = _build_system_fused(
-                cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta, robust_kind
-            )
+            if fused:
+                a, b, e_w, (diag_g, d_f), free_tm = _build_system_fused(
+                    cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta, robust_kind, dist
+                )
+                delta_tm = _solve_cam(a, b, config.jacobi_scaling) * free_tm
+                delta_xi = type_major_to_camera_major(delta_tm, nf, f_pad)
+            else:
+                a, b, e_w, (diag_g, d_f) = _build_system(
+                    cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta, robust_kind, dist, model
+                )
+                delta_xi = _solve_cam(a, b, config.jacobi_scaling) * free
+            del a, b
             if huber_delta is not None:
                 e_base = e_w  # the weighted E at the current state
-            delta_tm = _solve_cam(a, b, config.jacobi_scaling) * free_tm
-            del a, b
-            delta_xi = type_major_to_camera_major(delta_tm, nf, f_pad)
             trial_cam = _apply_update(cam, delta_xi, torch.zeros((0, 3), dtype=dt, device=dev))
             X_trial, e_trial, dDd_pts, gd_pts = _backsub_and_trial(
                 cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi, huber_delta,
-                robust_kind
+                robust_kind, dist, model, fused
             )
             acc_t = e_trial <= e_base
             pred = None
@@ -243,18 +324,70 @@ def bundle_adjust_chunked(
     derivative planes. x (P, F, 2); the optional visibility is (P, F).
     Runs on the card unless ``device`` says otherwise; the working dtype
     is x's. The returned ``log`` carries the final damping (c, nu) so a
-    segmented run resumes through ``init_c``/``init_nu``."""
-    _check_ported(config, dist=distortion)
+    segmented run resumes through ``init_c``/``init_nu``.
+
+    ``distortion`` / ``config.distortion_rounds``: the BAL radial (fused
+    build) or OPENCV (non-fused build) model, held fixed or alternated
+    with its closed-form refit (``fit_distortion_chunked``) as in the
+    dense core. ``n_iter`` counts every LM segment; as in the JAX package
+    ``log["n_solver_retries"]`` and the recorded E cover the last segment,
+    and ``log["n_solver_retries_total"]`` counts every segment's retries."""
     x, vis, state0, free, info = _prepare_problem(
         x, init_X, init_K, init_R, init_t, f0, visibility, axis, device
     )
+    dist, model = _prepare_distortion(distortion, config, x.shape[1], 0, x.dtype, x.device)
+    robust_kind = resolve_robust(config.robust)
+    seg_cfg = dataclasses.replace(config, record_log=False)
+    c_seg, nu_seg = init_c, init_nu
+    n_seg_total = retries_seg = 0
+    for _ in range(config.distortion_rounds):
+        # refit first, then an LM segment, as the dense core
+        dist = fit_distortion_chunked(
+            state0, x, vis, f0, chunk_size, shared=config.distortion_shared,
+            huber_delta=None if robust_kind is None else config.huber_delta, dist=dist,
+            model=model, robust_kind=robust_kind or "huber")
+        state0, _, c_seg, nu_seg, n_seg, r_seg, _ = lm_optimize_chunked(
+            x, state0, vis, free, f0, seg_cfg, chunk_size, init_c=c_seg, init_nu=nu_seg,
+            dist=dist)
+        n_seg_total += n_seg
+        retries_seg += r_seg
 
     final, e, c_f, nu_f, n_iter, n_retries, scalar_log = lm_optimize_chunked(
-        x, state0, vis, free, f0, config, chunk_size, init_c=init_c, init_nu=init_nu,
+        x, state0, vis, free, f0, config, chunk_size, init_c=c_seg, init_nu=nu_seg, dist=dist,
     )
     Xg, Rg, tg = restore_gauge(info, final.X, final.R, final.t)
-    log = {"n_solver_retries": n_retries, "c": c_f, "nu": nu_f}
+    log = {"n_solver_retries": n_retries, "n_solver_retries_total": n_retries + retries_seg,
+           "c": c_f, "nu": nu_f}
     if scalar_log is not None:
         log.update(scalar_log)
     return BAResult(X=Xg, K=build_K(final.f, final.u, f0), R=Rg, t=tg, error=e,
-                    n_iter=n_iter, log=log)
+                    n_iter=n_iter + n_seg_total, log=log, distortion=dist)
+
+
+def fit_distortion_chunked(state: BAState, x, vis, f0: float, chunk_size: int,
+                           shared: bool = False, huber_delta: float | None = None, dist=None,
+                           model: str | None = None, robust_kind: str = "huber") -> torch.Tensor:
+    """The closed-form distortion refit (``fit_distortion``) with its
+    normal-equation terms summed over point chunks, so no more than one
+    chunk's terms exist at a time; it equals the dense refit on the same
+    data. With ``huber_delta`` the terms are IRLS-weighted by the
+    residuals of the current model ``dist``. The model follows ``dist``'s
+    columns unless ``model`` names it. x (P, F, 2) and
+    vis (P, F) or (P, 1) are tensors on one device; the tail chunk is
+    padded with zero visibility."""
+    if model is None:
+        model = resolve_distortion_model(dist, "auto")
+    check_distortion_ported(model)
+    npts = x.shape[0]
+    pad = (-npts) % chunk_size
+    X = state.X
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        vis = torch.cat([vis, vis.new_zeros((pad,) + vis.shape[1:])])
+        X = torch.cat([X, X.mean(dim=0).expand(pad, 3)])
+    cam = state._replace(X=X[:0])
+    terms = x.new_zeros((cam.f.shape[0], distortion_nterms(model)))
+    for X_c, x_c, vis_c in zip(X.split(chunk_size), x.split(chunk_size), vis.split(chunk_size)):
+        terms = terms + _chunk_distortion_terms(cam, X_c, x_c, vis_c, f0, dist, model,
+                                                huber_delta, robust_kind)
+    return _solve_distortion_lsq(terms, shared)

@@ -25,6 +25,11 @@ the current state, in both passes: pass 1 weights the blocks (and so the Y
 that K1 reads) and returns the weighted E, the retry's accept baseline;
 pass 2 sums the trial error under the same weights. No (P, F) weight
 array exists.
+
+The BAL radial and OPENCV distortion models run through both passes and
+the starting error, as in the dense core; with ``distortion_rounds`` each
+round's closed-form refit adds one streaming pass that sums the per-camera
+normal equations chunk by chunk.
 """
 
 from __future__ import annotations
@@ -37,21 +42,23 @@ import numpy as np
 import torch
 
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
-from ..ops.linalg import chol3x3, inv3x3, inv_lower3
-from ..ops.syrk import row_stride, syrk
+from ..ops.syrk import syrk
 from .bundle_adjustment import (
     BAResult,
     BAState,
     _apply_update,
-    _check_ported,
     _chol_solve,
+    _chunk_backsub,
     _chunk_blocks,
-    _chunk_factors,
+    _chunk_distortion_terms,
     _damp,
-    _point_grad_and_block,
+    _damped_schur_factor,
+    _prepare_distortion,
     _reduced_camera_system,
+    _solve_distortion_lsq,
     _state_error,
     build_K,
+    distortion_nterms,
     gauge_mask,
     intrinsics_from_K,
     normalize_gauge,
@@ -61,25 +68,18 @@ from .bundle_adjustment import (
 
 
 def _accumulate_chunk(accs, cam: BAState, X_c, x_c, vis_c, free, c: float, f0: float,
-                      huber_delta=None, robust_kind: str = "huber"):
+                      huber_delta=None, robust_kind: str = "huber", dist=None,
+                      model: str | None = None):
     """Fold one chunk's damped Schur/gradient contributions into the
     accumulators (schur, b, G, d_F, E) and return them. With
     ``huber_delta`` the blocks and the error are IRLS-weighted at the
-    current state."""
+    current state; with ``dist`` they go through the distortion model.
+    The chunk's Schur term is K1's product of the K-major Y."""
     schur_acc, b_acc, g_acc, df_acc, e_acc = accs
     d_P, d_F, matE, matF, matG, e_chunk = _chunk_blocks(cam, X_c, x_c, vis_c, free, f0,
-                                                        huber_delta, robust_kind)
-    linv = inv_lower3(chol3x3(_damp(matE, c)))
-    npts_c, _, nf9 = matF.shape
-    # Yᵀ (9F, 3C) = (L⁻¹F)ᵀ, written by the product itself in rows that
-    # start on 128-byte lines: its transpose Y (3C, 9F) is K-major, as K1
-    # reads it
-    y_t = torch.empty((nf9, row_stride(npts_c * 3)), dtype=matF.dtype,
-                      device=matF.device)[:, :npts_c * 3]
-    torch.bmm(matF.transpose(1, 2), linv.transpose(1, 2),
-              out=y_t.view(nf9, npts_c, 3).transpose(0, 1))
+                                                        huber_delta, robust_kind, dist, model)
+    y_t, yd = _damped_schur_factor(matE, matF, d_P, c)
     del matF
-    yd = torch.einsum("pxy,py->px", linv, d_P)
     schur_acc = schur_acc + syrk(y_t.T)
     b_acc = b_acc + y_t @ yd.reshape(-1)
     return (schur_acc, b_acc, g_acc + matG, df_acc + d_F, e_acc + e_chunk)
@@ -93,28 +93,8 @@ def _assemble_and_solve(accs, free, c: float):
     return _chol_solve(a, b_p - d_f) * free, e_now
 
 
-def _backsub_chunk(cam: BAState, trial_cam: BAState, X_c, x_c, vis_c, free, c: float,
-                   delta_xi, f0: float, huber_delta=None, robust_kind: str = "huber"):
-    """Back-substitute one chunk's point update and its trial error, the
-    latter under the current state's IRLS weights with ``huber_delta``.
-    Returns (X_new_c, e_trial_c)."""
-    a1, a2, b1, b2, res_p, res_q, vis_c = _chunk_factors(cam, X_c, x_c, vis_c, f0,
-                                                         huber_delta, robust_kind)
-    d_P, matE = _point_grad_and_block(a1, a2, res_p, res_q, vis_c)
-    einv = inv3x3(_damp(matE, c))
-    nf = cam.f.shape[0]
-    dxi = (delta_xi * free).reshape(nf, 9)
-    vis_d = vis_c.expand(res_p.shape)
-    s1 = vis_d * torch.einsum("pfi,fi->pf", b1, dxi)
-    s2 = vis_d * torch.einsum("pfi,fi->pf", b2, dxi)
-    f_dxi = 2.0 * (torch.einsum("pf,pfx->px", s1, a1) + torch.einsum("pf,pfx->px", s2, a2))
-    delta_x = -torch.einsum("pxy,py->px", einv, f_dxi + d_P)
-    X_new = X_c + delta_x
-    return X_new, _state_error(trial_cam._replace(X=X_new), x_c, vis_c, f0)
-
-
-def _chunk_error(cam: BAState, X_c, x_c, vis_c, f0: float):
-    return _state_error(cam._replace(X=X_c), x_c, vis_c, f0)
+def _chunk_error(cam: BAState, X_c, x_c, vis_c, f0: float, dist=None, model: str | None = None):
+    return _state_error(cam._replace(X=X_c), x_c, vis_c, f0, dist, model)
 
 
 class _ChunkFeed:
@@ -295,10 +275,13 @@ def bundle_adjust_streamed(
     the results are identical either way. ``timer`` (an ``EventTimer``)
     records ``pass1``, ``pass2`` and ``h2d`` spans on the card.
 
-    Distortion and ``config.distortion_rounds > 0`` are not ported yet and
-    raise ``NotImplementedError``; an unknown loss name raises
-    ``ValueError`` (``resolve_robust``)."""
-    _check_ported(config, dist=distortion)
+    ``distortion`` / ``config.distortion_rounds``: the BAL radial or
+    OPENCV model, held fixed or alternated with its closed-form refit as in
+    the dense core; each refit's normal terms are summed over one
+    streaming pass. ``n_iter`` and ``n_solver_retries`` count every LM
+    segment. The other distortion families raise ``NotImplementedError``
+    naming the model; an unknown loss name raises ``ValueError``
+    (``resolve_robust``)."""
     dev = resolve_device(device)
     x_host = np.asarray(x_host)
     dt = result_dtype(x_host)
@@ -315,6 +298,7 @@ def bundle_adjust_streamed(
     free = gauge_mask(nf, axis, dt, dev)
     feed = _ChunkFeed(x_host, vis_host, chunk_size, dt, dev, prefetch=prefetch, timer=timer)
     nf9 = 9 * nf
+    dist, model = _prepare_distortion(distortion, config, nf, 0, dt, dev)
     robust_kind = resolve_robust(config.robust)
     huber_delta = None if robust_kind is None else config.huber_delta
 
@@ -332,18 +316,27 @@ def bundle_adjust_streamed(
             return X_s[lo:hi]
         return torch.cat([X_s[lo:hi], X_s.new_zeros((feed.chunk - (hi - lo), 3))])
 
-    def error_of(cam_s, X_s):
+    def error_of(cam_s, X_s, dist):
         e = torch.zeros((), dtype=dt, device=dev)
         for lo, hi, x_c, vis_c in feed:
-            e = e + _chunk_error(cam_s, get_X_chunk(X_s, lo, hi), x_c, vis_c, f0)
+            e = e + _chunk_error(cam_s, get_X_chunk(X_s, lo, hi), x_c, vis_c, f0, dist, model)
         return e
+
+    def fit_distortion_streamed(cam_s, X_s, dist):
+        """The closed-form refit, its normal terms summed over one
+        streaming pass."""
+        terms = torch.zeros((nf, distortion_nterms(model)), dtype=dt, device=dev)
+        for lo, hi, x_c, vis_c in feed:
+            terms = terms + _chunk_distortion_terms(cam_s, get_X_chunk(X_s, lo, hi), x_c, vis_c,
+                                                    f0, dist, model, huber_delta, robust_kind)
+        return _solve_distortion_lsq(terms, config.distortion_shared)
 
     def span(name):
         return timer.span(name) if timer is not None else contextlib.nullcontext()
 
-    def lm_segment(cam, X_dev, c, max_iter):
+    def lm_segment(cam, X_dev, c, max_iter, dist):
         """The LM outer/retry protocol over streamed chunks."""
-        e_prev = float(error_of(cam, X_dev))
+        e_prev = float(error_of(cam, X_dev, dist))
         n_iter = 0
         n_retries = 0
         for _ in range(max_iter):
@@ -359,7 +352,8 @@ def bundle_adjust_streamed(
                     accs = zeros_accs()
                     for lo, hi, x_c, vis_c in feed:
                         accs = _accumulate_chunk(accs, cam, get_X_chunk(X_dev, lo, hi), x_c,
-                                                 vis_c, free, c, f0, huber_delta, robust_kind)
+                                                 vis_c, free, c, f0, huber_delta, robust_kind,
+                                                 dist, model)
                     delta_xi, e_w = _assemble_and_solve(accs, free, c)
                     del accs
                 trial_cam = _apply_update(cam, delta_xi, no_points)
@@ -369,9 +363,9 @@ def bundle_adjust_streamed(
                     X_parts = []
                     e_trial = torch.zeros((), dtype=dt, device=dev)
                     for lo, hi, x_c, vis_c in feed:
-                        X_new_c, e_c = _backsub_chunk(cam, trial_cam, get_X_chunk(X_dev, lo, hi),
-                                                      x_c, vis_c, free, c, delta_xi, f0,
-                                                      huber_delta, robust_kind)
+                        X_new_c, e_c, _, _ = _chunk_backsub(
+                            cam, trial_cam, get_X_chunk(X_dev, lo, hi), x_c, vis_c, free, c,
+                            delta_xi, f0, huber_delta, robust_kind, dist, model)
                         X_parts.append(X_new_c[: hi - lo])
                         e_trial = e_trial + e_c
                 # the one host read of the retry
@@ -397,12 +391,19 @@ def bundle_adjust_streamed(
         return cam, X_dev, e_prev, c, n_iter, n_retries
 
     c = float(config.init_damping if init_c is None else init_c)
-    cam, X_dev, e_prev, c, n_iter, n_retries = lm_segment(cam, X_dev, c, config.max_iter)
+    n_iter = n_retries = 0
+    for _ in range(config.distortion_rounds):
+        # refit first, then an LM segment, as the dense core
+        dist = fit_distortion_streamed(cam, X_dev, dist)
+        cam, X_dev, _, c, n_seg, r_seg = lm_segment(cam, X_dev, c, config.max_iter, dist)
+        n_iter += n_seg
+        n_retries += r_seg
+    cam, X_dev, e_prev, c, n_seg, r_seg = lm_segment(cam, X_dev, c, config.max_iter, dist)
 
     Xg, Rg, tg = restore_gauge(info, X_dev, cam.R, cam.t)
     return BAResult(
         X=Xg, K=build_K(cam.f, cam.u, f0), R=Rg, t=tg,
-        error=torch.tensor(e_prev, dtype=dt, device=dev), n_iter=n_iter,
-        log={"n_solver_retries": n_retries, "c": c},
+        error=torch.tensor(e_prev, dtype=dt, device=dev), n_iter=n_iter + n_seg,
+        log={"n_solver_retries": n_retries + r_seg, "c": c}, distortion=dist,
     )
 

@@ -28,13 +28,16 @@ fails gives NaN blocks, as ``cho_factor`` does there. ``ba_covariance``
 takes leading scene dimensions as lanes (``vmap`` in the JAX package);
 ``ba_covariance_chunked`` streams point chunks of a device-resident
 problem; ``ba_covariance_streamed`` streams them from host memory through
-the streamed core's ``_ChunkFeed``. Distortion models are not ported yet
-and raise ``NotImplementedError``.
+the streamed core's ``_ChunkFeed``. With ``distortion`` (BAL radial or
+OPENCV, held at the given values) the blocks are those of the distorted
+residuals, plain or IRLS-weighted; the other families raise
+``NotImplementedError`` naming the model.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -48,6 +51,7 @@ from .bundle_adjustment import (
     _chunk_blocks,
     _compute_derivs,
     _huber_weights,
+    _prepare_distortion,
     _prepare_problem,
     _reduced_camera_system,
     gauge_mask,
@@ -66,13 +70,20 @@ class BACovariance(NamedTuple):
     error: torch.Tensor  # (...,) E at the given state (weighted under a robust loss)
 
 
-def _robust_args(config: LMConfig, distortion) -> tuple[float | None, str]:
+def _robust_args(config: LMConfig) -> tuple[float | None, str]:
     """(huber_delta, robust_kind) of the config: huber_delta is None for
     plain least squares."""
-    if distortion is not None:
-        raise NotImplementedError("distortion models are not ported yet")
     kind = resolve_robust(config.robust)
     return (None, "huber") if kind is None else (config.huber_delta, kind)
+
+
+def _distortion_args(distortion, config: LMConfig, nf: int, lane_dims: int, dtype, device):
+    """(dist, model) of the given distortion, as the BA cores take it
+    (``_prepare_distortion``); the covariance refits nothing, so no
+    distortion means the pinhole model whatever ``distortion_rounds``
+    says."""
+    return _prepare_distortion(distortion, dataclasses.replace(config, distortion_rounds=0), nf,
+                               lane_dims, dtype, device)
 
 
 def _noise_scale(e: torch.Tensor, n_obs: torch.Tensor, npts: int, free: torch.Tensor):
@@ -177,13 +188,16 @@ def ba_covariance(
     so that the gauge conditioning matches the optimization's. Leading
     dimensions of x (..., P, F, 2) and the state are lanes, each its own
     problem. Runs on the card unless ``device`` says otherwise; the working
-    dtype is x's."""
-    huber_delta, robust_kind = _robust_args(config, distortion)
+    dtype is x's. ``distortion`` (one problem) is the BAL radial (F, 2) or
+    OPENCV (F, 4) model of the solution, as ``bundle_adjust`` returns it."""
+    huber_delta, robust_kind = _robust_args(config)
     x, vis, state, free, info = _prepare_problem(x, X, K, R, t, f0, visibility, axis, device)
+    dist, model = _distortion_args(distortion, config, x.shape[-2], x.dim() - 3, x.dtype,
+                                   x.device)
     vis_w = vis
     if huber_delta is not None:
-        vis_w = _huber_weights(state, x, vis, f0, huber_delta, robust_kind)
-    derivs, e = _compute_derivs(state, x, vis_w, free, f0)
+        vis_w = _huber_weights(state, x, vis, f0, huber_delta, robust_kind, dist, model)
+    derivs, e = _compute_derivs(state, x, vis_w, free, f0, dist, model)
     npts, nf = x.shape[-3], x.shape[-2]
     n_obs = torch.sum((vis > 0).expand(x.shape[:-1]), dim=(-2, -1))
     sigma2, scale2 = _noise_scale(e, n_obs, npts, free)
@@ -195,21 +209,23 @@ def ba_covariance(
 
 
 def _cov_accumulate_chunk(accs, cam: BAState, X_c, x_c, vis_c, free, f0: float,
-                          huber_delta=None, robust_kind: str = "huber"):
+                          huber_delta=None, robust_kind: str = "huber", dist=None,
+                          model: str | None = None):
     """Fold one point chunk into the undamped (schur, G, E) accumulators."""
     schur, g, e = accs
     _, _, matE, matF, matG, e_chunk = _chunk_blocks(cam, X_c, x_c, vis_c, free, f0,
-                                                    huber_delta, robust_kind)
+                                                    huber_delta, robust_kind, dist, model)
     _, y = _schur_terms(matE, matF)
     return schur.addmm_(matF.view(-1, matF.shape[-1]).T, y.view(-1, y.shape[-1])), g + matG, e + e_chunk
 
 
 def _cov_point_chunk(cam: BAState, X_c, x_c, vis_c, free, f0: float, a_inv, scale2,
-                     huber_delta=None, robust_kind: str = "huber"):
+                     huber_delta=None, robust_kind: str = "huber", dist=None,
+                     model: str | None = None):
     """One chunk's normalized-frame point covariance blocks against the
     completed A^-1."""
     _, _, matE, matF, _, _ = _chunk_blocks(cam, X_c, x_c, vis_c, free, f0, huber_delta,
-                                           robust_kind)
+                                           robust_kind, dist, model)
     einv, y = _schur_terms(matE, matF)
     del matF
     return _point_cov_from(einv, y, a_inv, scale2)
@@ -239,10 +255,11 @@ def ba_covariance_chunked(
     chunks (no (P, 3, 9F) coupling block exists), pass 2 recomputes each
     chunk's blocks for its point covariances against the shared A^-1.
     Runs on the card unless ``device`` says otherwise."""
-    huber_delta, robust_kind = _robust_args(config, distortion)
+    huber_delta, robust_kind = _robust_args(config)
     x, vis, state, free, info = _prepare_problem(x, X, K, R, t, f0, visibility, axis, device)
     npts, nf = x.shape[0], x.shape[1]
     dt, dev = x.dtype, x.device
+    dist, model = _distortion_args(distortion, config, nf, 0, dt, dev)
     n_obs = torch.sum((vis > 0).expand(npts, nf))
     X0 = state.X
     pad = (-npts) % chunk_size
@@ -256,14 +273,15 @@ def ba_covariance_chunked(
     accs = _zero_accs(nf, dt, dev)
     for X_c, x_c, vis_c in chunks:
         accs = _cov_accumulate_chunk(accs, cam, X_c, x_c, vis_c, free, f0, huber_delta,
-                                     robust_kind)
+                                     robust_kind, dist, model)
     schur, g, e = accs
     del accs
     a_inv = _finish_schur_inverse(schur, g, free)
     del schur
     sigma2, scale2 = _noise_scale(e, n_obs, npts, free)
     point_cov_n = torch.cat([
-        _cov_point_chunk(cam, X_c, x_c, vis_c, free, f0, a_inv, scale2, huber_delta, robust_kind)
+        _cov_point_chunk(cam, X_c, x_c, vis_c, free, f0, a_inv, scale2, huber_delta, robust_kind,
+                         dist, model)
         for X_c, x_c, vis_c in chunks])[:npts]
     cam_cov_n = _camera_cov_from(a_inv, nf, scale2)
     return _finalize(point_cov_n, cam_cov_n, info, sigma2, n_obs, e)
@@ -292,12 +310,13 @@ def ba_covariance_streamed(
     the Schur accumulation, then the point blocks. The working dtype is
     x_host's. ``n_obs`` is counted from the host mask. ``timer`` (an
     ``EventTimer``) records ``pass1`` and ``pass2`` spans on the card."""
-    huber_delta, robust_kind = _robust_args(config, distortion)
+    huber_delta, robust_kind = _robust_args(config)
     dev = resolve_device(device)
     x_host = np.asarray(x_host)
     dt = result_dtype(x_host)
     vis_host = None if visibility is None else np.asarray(visibility)
     npts, nf = x_host.shape[0], x_host.shape[1]
+    dist, model = _distortion_args(distortion, config, nf, 0, dt, dev)
     n_obs = torch.tensor(npts * nf if vis_host is None else np.count_nonzero(vis_host > 0),
                          device=dev)
 
@@ -321,7 +340,7 @@ def ba_covariance_streamed(
         accs = _zero_accs(nf, dt, dev)
         for lo, hi, x_c, vis_c in feed:
             accs = _cov_accumulate_chunk(accs, cam, X_chunk(lo, hi), x_c, vis_c, free, f0,
-                                         huber_delta, robust_kind)
+                                         huber_delta, robust_kind, dist, model)
         schur, g, e = accs
         del accs
         a_inv = _finish_schur_inverse(schur, g, free)
@@ -330,7 +349,7 @@ def ba_covariance_streamed(
     with span("pass2"):
         point_cov_n = torch.cat([
             _cov_point_chunk(cam, X_chunk(lo, hi), x_c, vis_c, free, f0, a_inv, scale2,
-                             huber_delta, robust_kind)[: hi - lo]
+                             huber_delta, robust_kind, dist, model)[: hi - lo]
             for lo, hi, x_c, vis_c in feed])
     cam_cov_n = _camera_cov_from(a_inv, nf, scale2)
     return _finalize(point_cov_n, cam_cov_n, info, sigma2, n_obs, e)

@@ -16,10 +16,15 @@ retries. With float64 inputs Y and the accumulator stay float64, and the
 build is the non-fused algebra, permuted.
 
 Under a robust loss (``huber_delta`` set) both passes take the IRLS weights
-of ``robust_kind`` from the raw residuals at the current cameras and
-multiply them into the visibility before any sum: the weighted Y goes
-through K2 at the same shapes, and the back-substitution takes the trial
-error under those current-state weights.
+of ``robust_kind`` from the residuals at the current cameras and multiply
+them into the visibility before any sum: the weighted Y goes through K2 at
+the same shapes, and the back-substitution takes the trial error under
+those current-state weights.
+
+The BAL radial distortion model (``dist`` (F, 2)) chains the residuals and
+the factor planes through its 2x2 Jacobian before anything is summed, as
+``pallas_schur._factor_planes`` does there; Y keeps its shape. The OPENCV
+model takes the non-fused build (``bundle_adjustment_chunked``).
 
 On a CUDA tensor ``syrk_acc`` launches the kernel in
 ``csrc/syrk_acc.cu`` or raises; on a CPU tensor it runs the plain version
@@ -32,7 +37,13 @@ import ctypes
 
 import torch
 
-from ..models.bundle_adjustment import _distorted_residual, build_K, calc_pqr, robust_weight
+from ..models.bundle_adjustment import (
+    _distorted_residual,
+    _distortion_terms,
+    build_K,
+    calc_pqr,
+    robust_weight,
+)
 from .linalg import chol3x3, inv_lower3
 from .syrk import TILE, mirror_lower
 
@@ -144,9 +155,12 @@ def assemble_type_major(schur_tm, b_p_tm, matG, d_F, free, c, nf: int, f_pad: in
     return a, b, free_tm
 
 
-def _factor_planes(cam, X_c, x_c, pmat, p, q, r, f0: float):
+def _factor_planes(cam, X_c, x_c, pmat, p, q, r, f0: float, dist=None):
     """Raw residuals, a-factors (C, F, 3) and type-major b planes (9, C, F)
-    [parameter order f, u, v, t(3), omega(3)], undistorted model."""
+    [parameter order f, u, v, t(3), omega(3)]. With ``dist`` (the BAL radial
+    model, (F, 2)) they chain through the distortion as the camera-major
+    ``_apply_distortion_chain`` does, with the u and v fix-ups on planes 1
+    and 2 and the f one on plane 0."""
     inv_r2 = 1.0 / (r * r)
     res_p = p / r - x_c[..., 0] / f0
     res_q = q / r - x_c[..., 1] / f0
@@ -178,21 +192,41 @@ def _factor_planes(cam, X_c, x_c, pmat, p, q, r, f0: float):
         *[(r * dqdt[None, :, k] - q * drdt[None, :, k]) * inv_r2 for k in range(3)],
         *[(r * cross_k(dqdt, k) - q * cross_k(drdt, k)) * inv_r2 for k in range(3)],
     ])
+    if dist is not None:
+        g1, g2, s, d, wu = _distortion_terms(cam, p, q, r, f0, dist, "radial")
+        res_p = res_p + (d - 1.0) * g1
+        res_q = res_q + (d - 1.0) * g2
+        cw = wu * (f0 / cam.f)[None] ** 2
+        d11 = d + cw * g1 * g1
+        d12 = cw * g1 * g2
+        d22 = d + cw * g2 * g2
+        a1, a2 = (d11[..., None] * a1 + d12[..., None] * a2,
+                  d12[..., None] * a1 + d22[..., None] * a2)
+        inv_f0 = 1.0 / f0
+        b1[1] -= inv_f0  # b -> dg/dtheta (u and v planes only)
+        b2[2] -= inv_f0
+        b1, b2 = d11[None] * b1 + d12[None] * b2, d12[None] * b1 + d22[None] * b2
+        b1[1] += inv_f0  # + d(u/f0)/du
+        b2[2] += inv_f0
+        cf = wu * s / cam.f[None]  # -(wu s / f) g on the f plane
+        b1[0] -= cf * g1
+        b2[0] -= cf * g2
     return res_p, res_q, a1, a2, b1, b2
 
 
 def _point_terms(cam, X_c, x_c, vis_c, f0: float, c, huber_delta=None,
-                 robust_kind: str = "huber"):
+                 robust_kind: str = "huber", dist=None):
     """Per-chunk generation shared by the build and the back-substitution:
-    the effective (IRLS-weighted with ``huber_delta``) visibility, the
-    factor planes, the point gradient d_P, the point blocks matE and the
-    damped Cholesky inverse L⁻¹ of each (1 + c diag) matE."""
+    the effective visibility (IRLS-weighted with ``huber_delta``, from the
+    distorted residuals with ``dist``), the factor planes, the point
+    gradient d_P, the point blocks matE and the damped Cholesky inverse
+    L⁻¹ of each (1 + c diag) matE."""
     dt = x_c.dtype
     c_pts, nf = x_c.shape[0], x_c.shape[1]
     pmat, p, q, r = calc_pqr(X_c, build_K(cam.f, cam.u, f0), cam.R, cam.t)
     vis_d = vis_c.expand(c_pts, nf).to(dt)
     r = torch.where(vis_d > 0, r, torch.ones_like(r))
-    res_p, res_q, a1, a2, b1, b2 = _factor_planes(cam, X_c, x_c, pmat, p, q, r, f0)
+    res_p, res_q, a1, a2, b1, b2 = _factor_planes(cam, X_c, x_c, pmat, p, q, r, f0, dist)
     if huber_delta is not None:
         vis_d = vis_d * robust_weight(torch.sqrt(res_p**2 + res_q**2), huber_delta, robust_kind)
 
@@ -208,10 +242,11 @@ def _point_terms(cam, X_c, x_c, vis_c, f0: float, c, huber_delta=None,
 
 
 def fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0: float, c, huber_delta=None,
-                       robust_kind: str = "huber"):
+                       robust_kind: str = "huber", dist=None):
     """One chunk of the fused build: the gradient-side quantities, the
     damped type-major Y, and its SYRK accumulated into ``acc`` in place;
-    everything IRLS-weighted with ``huber_delta``.
+    everything IRLS-weighted with ``huber_delta`` and through the radial
+    distortion with ``dist``.
 
     Returns (acc, d_F_cm (9F,) unmasked, matG (F, 9, 9), e_chunk (the
     weighted E with ``huber_delta``), b_p (9, Fp))."""
@@ -220,7 +255,7 @@ def fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0: float, c, huber_delta=None
     n_acc = acc.shape[0]
     f_pad = n_acc // 9
     vis_d, res_p, res_q, a1, a2, b1, b2, d_P, _, linv = _point_terms(
-        cam, X_c, x_c, vis_c, f0, c, huber_delta, robust_kind)
+        cam, X_c, x_c, vis_c, f0, c, huber_delta, robust_kind, dist)
     e_chunk = torch.sum(vis_d * (res_p**2 + res_q**2))
 
     w2 = 2.0 * vis_d
@@ -247,15 +282,16 @@ def fused_chunk_update(acc, cam, X_c, x_c, vis_c, f0: float, c, huber_delta=None
 
 
 def fused_backsub_chunk(cam, trial_cam, X_c, x_c, vis_c, f0: float, c, delta_xi_cm,
-                        huber_delta=None, robust_kind: str = "huber"):
+                        huber_delta=None, robust_kind: str = "huber", dist=None):
     """Back-substitution for one chunk from the type-major b planes. With
     ``huber_delta`` the weights are taken anew at the current cameras
-    ``cam``, and the trial error at ``trial_cam`` is summed under them.
+    ``cam``, and the trial error at ``trial_cam`` is summed under them;
+    with ``dist`` the trial error is the distorted one.
 
     Returns (X_new, e_trial_chunk, dDd_chunk, g_d_chunk)."""
     nf = x_c.shape[1]
     vis_d, _, _, a1, a2, b1, b2, d_P, matE, linv = _point_terms(
-        cam, X_c, x_c, vis_c, f0, c, huber_delta, robust_kind)
+        cam, X_c, x_c, vis_c, f0, c, huber_delta, robust_kind, dist)
 
     dxi_tm = delta_xi_cm.reshape(nf, 9).T  # (9, F)
     s1 = vis_d * torch.einsum("jpf,jf->pf", b1, dxi_tm)
@@ -273,6 +309,6 @@ def fused_backsub_chunk(cam, trial_cam, X_c, x_c, vis_c, f0: float, c, delta_xi_
     K_trial = build_K(trial_cam.f, trial_cam.u, f0)
     _, pt, qt, rt = calc_pqr(X_new, K_trial, trial_cam.R, trial_cam.t)
     rt = torch.where(vis_d > 0, rt, torch.ones_like(rt))
-    res_tp, res_tq = _distorted_residual(trial_cam, pt, qt, rt, x_c, f0)
+    res_tp, res_tq = _distorted_residual(trial_cam, pt, qt, rt, x_c, f0, dist, "radial")
     e_c = torch.sum(vis_d * (res_tp**2 + res_tq**2))
     return X_new, e_c, dDd_c, gd_c

@@ -4,7 +4,9 @@ Counterpart of ``mvrecon_tpu/ops/pallas_syrk.py``. The reduced camera
 system of a point chunk is ``Σ_p F_pᵀ E_p⁻¹ F_p = YᵀY`` with Y = L⁻¹F of
 shape (3C, 9F). The product is symmetric, so ``syrk_lower`` computes only
 the 512-tiles on and below the diagonal and ``mirror_lower`` completes
-the square.
+the square. The chunked core's non-fused build sums the fresh lower-tile
+outputs of its chunks into one accumulator and mirrors once at the end
+(``syrk_lower_accumulate``, ``finish_syrk_accumulator``).
 
 On a CUDA tensor ``syrk_lower`` launches the kernel in
 ``csrc/syrk_lower.cu`` (3xTF32 on ``wgmma``, float32-accurate) or raises;
@@ -145,3 +147,23 @@ def mirror_lower(lower: torch.Tensor, n: int) -> torch.Tensor:
 def syrk(y: torch.Tensor) -> torch.Tensor:
     """S = YᵀY (N, N): the lower tiles by ``syrk_lower``, mirrored."""
     return mirror_lower(syrk_lower(y), y.shape[1])
+
+
+def syrk_accumulator_dim(n: int) -> int:
+    """Side of the accumulator that sums ``syrk_lower`` results of Y (K, n)
+    over chunks: n rounded up to the 512-tile, on either device."""
+    return padded_dim(n)
+
+
+def syrk_lower_accumulate(acc: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """acc += the ``syrk_lower`` result of Y, in place: the deferred-mirror
+    sum over point chunks. Only the element-wise lower triangle of acc is
+    meaningful (the upper tiles sum whatever the kernel's fresh outputs
+    held there); :func:`finish_syrk_accumulator` reads nothing else."""
+    return acc.add_(syrk_lower(y))
+
+
+def finish_syrk_accumulator(acc: torch.Tensor, n: int) -> torch.Tensor:
+    """The full symmetric (n, n) sum from an accumulator of
+    ``syrk_lower`` results: mirrored once, after all chunks."""
+    return mirror_lower(acc, n)

@@ -224,12 +224,18 @@ def test_bundle_adjust_float32_matches_jax(damping):
     assert abs(tres["n_iter"] - int(jres.n_iter)) <= 1
 
 
+UNPORTED_DISTORTION = (("fisheye", 4), ("full_opencv", 8), ("fov", 1), ("thin_prism", 8))
+
+
 def test_unported_options_raise():
+    """The distortion families not ported yet raise, naming the model,
+    whether refit from zero or given; so does the solver hook."""
     prob = _problem(6, 5)
-    for cfg, kw in ((LMConfig(distortion_rounds=1), {}),
-                    (LMConfig(), {"distortion": np.zeros((6, 2))})):
-        with pytest.raises(NotImplementedError):
-            tba.bundle_adjust(*prob, config=cfg, device="cpu", **kw)
+    for model, ncols in UNPORTED_DISTORTION:
+        for cfg, kw in ((LMConfig(distortion_rounds=1, distortion_model=model), {}),
+                        (LMConfig(distortion_model=model), {"distortion": np.zeros((6, ncols))})):
+            with pytest.raises(NotImplementedError, match=model):
+                tba.bundle_adjust(*prob, config=cfg, device="cpu", **kw)
     fields, x, vis, free = _normalized(6, 5)
     state = ba_state_from_numpy(*fields, "cpu", torch.float64)
     args = [torch.from_numpy(a) for a in (x,)] + [state] + [torch.from_numpy(a) for a in (vis, free)]
