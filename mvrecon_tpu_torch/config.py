@@ -61,12 +61,11 @@ class LMConfig:
     """Levenberg–Marquardt hyperparameters (fields and defaults of the JAX
     package's ``LMConfig``; see there for what each one does). Every BA
     core of the port takes the robust losses (``robust``: None, "huber",
-    "cauchy", "soft_l1" or "arctan", at scale ``huber_delta``) and the BAL
-    radial and OPENCV distortion models (``distortion_model`` "auto",
-    "radial" or "opencv", with ``distortion_rounds`` of closed-form refit,
-    ``distortion_shared`` to tie them across cameras). The fisheye,
-    full_opencv, fov and thin_prism models are not ported yet and raise
-    ``NotImplementedError`` when a run models distortion."""
+    "cauchy", "soft_l1" or "arctan", at scale ``huber_delta``) and the six
+    distortion models (``distortion_model`` "auto", "radial", "opencv",
+    "fisheye", "full_opencv", "fov" or "thin_prism", with
+    ``distortion_rounds`` of refit, ``distortion_shared`` to tie them
+    across cameras)."""
 
     scale_factor: float = 10.0
     delta_tol: float = 1e-8

@@ -21,9 +21,9 @@ def ba_state_from_numpy(X, f, u, t, R, device, dtype) -> BAState:
 
 
 def distortion_from_numpy(dist, like: torch.Tensor) -> torch.Tensor:
-    """A numpy (F, 2) radial or (F, 4) OPENCV distortion as the port's
-    tensor, in the dtype and on the device of ``like`` (the problem's
-    observations or state)."""
+    """A numpy (F, n) distortion of any family as the port's tensor, in the
+    dtype and on the device of ``like`` (the problem's observations or
+    state)."""
     return as_tensor(dist, like.device, like.dtype)
 
 

@@ -26,15 +26,18 @@ Robust losses (``LMConfig.robust``: huber, cauchy, soft_l1, arctan) run as
 IRLS: each outer iteration reweights every observation from its current
 residual, per lane.
 
-Two lens distortion models are ported: BAL radial (k1, k2) and OPENCV
-(k1, k2, p1, p2). The residuals and the rank-2 Jacobian factors chain
-through the model's exact 2x2 Jacobian (:func:`_apply_distortion_chain`),
-so every downstream Schur path is unchanged; ``distortion_rounds``
-alternates a closed-form refit of the model (:func:`fit_distortion`) with
-the geometry LM. Distortion is for one problem, not for lanes. The other
-families (fisheye, full OPENCV, FOV, thin prism), the sharded
-(``axis_name``) variant and the ``solver`` hook are not ported yet and
-raise ``NotImplementedError``.
+Six lens distortion families are ported: BAL radial (k1, k2), OPENCV
+(k1, k2, p1, p2), OPENCV_FISHEYE (k1..k4), full OPENCV (the rational
+k1..k6 with p1, p2), FOV (one angle) and THIN_PRISM_FISHEYE. The residuals
+and the rank-2 Jacobian factors chain through the model's exact 2x2
+Jacobian (:func:`_apply_distortion_chain`, asymmetric for thin prism), so
+every downstream Schur path is unchanged; ``distortion_rounds`` alternates
+a refit of the model (:func:`fit_distortion`: closed form, or the
+full-OPENCV alternation, or Gauss-Newton on the FOV angle) with the
+geometry LM. :func:`distort_points` and :func:`undistort_points` map
+image points through the model and back. Distortion is for one problem,
+not for lanes. The sharded (``axis_name``) variant and the ``solver`` hook
+are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -520,16 +523,15 @@ def robust_weight(mag: torch.Tensor, delta: float, kind: str = "huber") -> torch
 DISTORTION_MODELS = ("radial", "opencv", "fisheye", "full_opencv", "fov", "thin_prism")
 _DISTORTION_NCOLS = {"radial": 2, "opencv": 4, "fisheye": 4, "full_opencv": 8, "fov": 1,
                      "thin_prism": 8}
-PORTED_DISTORTION_MODELS = ("radial", "opencv")
 
 
 def resolve_distortion_model(dist, model: str | None = "auto") -> str:
     """Concrete distortion-model name from (columns, requested model).
     "auto" (``LMConfig.distortion_model``'s default) keeps the column-count
     convention: (F, 2) BAL radial, (F, 4) OPENCV, (F, 1) FOV, (F, 8) full
-    OPENCV. OPENCV_FISHEYE also has 4 parameters, so it must be asked for
-    by name. An unknown name or a column count that does not fit raises
-    ``ValueError``."""
+    OPENCV. OPENCV_FISHEYE also has 4 parameters and THIN_PRISM_FISHEYE 8,
+    so they must be asked for by name. An unknown name or a column count
+    that does not fit raises ``ValueError``."""
     if model in (None, "auto"):
         if dist is None:
             return "radial"
@@ -546,24 +548,21 @@ def resolve_distortion_model(dist, model: str | None = "auto") -> str:
     return model
 
 
-def check_distortion_ported(model: str) -> None:
-    """``NotImplementedError`` naming ``model`` unless the port has it."""
-    if model not in PORTED_DISTORTION_MODELS:
-        raise NotImplementedError(f"the {model} distortion model is not ported yet "
-                                  f"(ported: {', '.join(PORTED_DISTORTION_MODELS)})")
-
-
 def default_distortion(model: str, nf: int, dtype, device=None) -> torch.Tensor:
     """Refit-from-scratch initial distortion: zero for the polynomial
-    families (the FOV angle, not ported, starts at 0.5 rad)."""
+    families; the FOV angle starts at 0.5 rad, because at 0 (the pinhole
+    limit) dd/domega vanishes and its Gauss-Newton refit would stay
+    there."""
     if model == "fov":
         return torch.full((nf, 1), 0.5, dtype=dtype, device=device)
     return torch.zeros((nf, _DISTORTION_NCOLS[model]), dtype=dtype, device=device)
 
 
 def distortion_nterms(model: str) -> int:
-    """Columns of the per-camera normal-equation accumulands of the
-    closed-form refit (:func:`_distortion_lsq_terms`)."""
+    """Columns of the per-camera accumulands of one refit pass
+    (:func:`_refit_terms`): the normal matrix and right-hand side of the
+    linear solve, the (5, 5) layout of either full-OPENCV round, or the
+    FOV step's numerator and denominator."""
     return {"radial": 5, "full_opencv": 30, "fov": 2, "thin_prism": 72}.get(model, 20)
 
 
@@ -575,34 +574,163 @@ def _per_camera(v: torch.Tensor) -> torch.Tensor:
 def _distortion_terms(state: BAState, p, q, r, f0: float, dist, model: str | None = None):
     """Per-observation radial quantities (g1, g2, s, d, wu): the distorted
     prediction is ``d g + u/f0`` with g = (p/r, q/r) - u/f0, and the exact
-    2x2 Jacobian chain is ``D = d I + wu (f0/f)^2 g g^T``.
+    2x2 Jacobian chain is ``D = d I + wu (f0/f)^2 g g^T``, with s =
+    (f0/f)^2 |g|^2 the squared radius of the normalized ray rho.
 
-    BAL radial (``runtime/io.py::load_bal`` in the JAX package): pixel =
-    f d(s) rho on the normalized ray rho, d = 1 + k1 s + k2 s^2 with
-    s = |rho|^2 = (f0/f)^2 |g|^2, and wu = 2 dd/ds. OPENCV shares this
-    radial part (its tangential shift is :func:`_tangential_terms`). ``r``
-    must already be sanitized (nonzero where masked)."""
+    BAL radial (``runtime/io.py::load_bal``): pixel = f d(s) rho,
+    d = 1 + k1 s + k2 s^2, wu = 2 dd/ds; OPENCV shares it (its tangential
+    shift is :func:`_tangential_terms`). Fisheye, full OPENCV (the
+    rational N/D, plus the tangential shift) and FOV have their own
+    (d, wu) (:func:`_fisheye_scale`, :func:`_rational_scale`,
+    :func:`_fov_scale`). Thin prism has no scalar (d, wu) form and raises
+    ``ValueError`` (:func:`_thin_prism_terms`). ``r`` must already be
+    sanitized (nonzero where masked)."""
     model = resolve_distortion_model(dist, model)
-    check_distortion_ported(model)
     g1 = p / r - _per_camera(state.u[..., 0] / f0)
     g2 = q / r - _per_camera(state.u[..., 1] / f0)
     s = _per_camera((f0 / state.f) ** 2) * (g1 * g1 + g2 * g2)
-    k1 = _per_camera(dist[..., 0])
-    k2 = _per_camera(dist[..., 1])
-    d = 1.0 + s * (k1 + s * k2)
-    wu = 2.0 * (k1 + 2.0 * k2 * s)
+    if model == "fisheye":
+        d, wu = _fisheye_scale(s, dist)
+    elif model == "full_opencv":
+        d, wu = _rational_scale(s, dist)
+    elif model == "fov":
+        d, wu = _fov_scale(s, dist)
+    elif model == "thin_prism":
+        raise ValueError("thin_prism is a two-stage model (equidistant base + theta-plane "
+                         "shift) and has no scalar (d, wu) form: use _thin_prism_terms and "
+                         "_apply_thin_prism_chain")
+    else:
+        k1 = _per_camera(dist[..., 0])
+        k2 = _per_camera(dist[..., 1])
+        d = 1.0 + s * (k1 + s * k2)
+        wu = 2.0 * (k1 + 2.0 * k2 * s)
     return g1, g2, s, d, wu
 
 
-def _tangential_terms(state: BAState, g1, g2, f0: float, dist):
-    """The OPENCV tangential shift (t1, t2) = c h(g), c = f0/f, of
-    (p1, p2) (``dist`` (F, 4) = (k1, k2, p1, p2)), and its symmetric
-    Jacobian wrt g (T11, T12, T22), which adds onto the radial 2x2 chain;
-    c's 1/f is the one extra camera dependence (the -t/f term of the f
-    column)."""
+def _fov_scale(s: torch.Tensor, dist: torch.Tensor):
+    """(d, d'/rn) of the FOV model (Devernay-Faugeras, COLMAP model 7) at
+    rn = sqrt(s): r_d = atan(2 rn tan(w/2)) / w and d = r_d / rn, with
+    ``dist`` (F, 1) the field-of-view angle w.
+
+    Both are even in rn: d -> 2 T / w and d'/rn -> -16 T^3 / (3 w) as
+    rn -> 0 (T = tan(w/2)). Below s = 1e-12 the Taylor branch is taken,
+    and the exact branch sees s = 1 there, so a gradient through the
+    unused branch stays finite. |w| < 1e-6 is the pinhole limit (d = 1,
+    no curvature): w divides everything, so it is guarded the same way."""
+    w = _per_camera(dist[..., 0])
+    pinhole = torch.abs(w) < 1e-6
+    w_safe = torch.where(pinhole, torch.ones_like(w), w)
+    t = torch.tan(0.5 * w_safe)
+    small = s < 1e-12
+    s_safe = torch.where(small, torch.ones_like(s), s)
+    rn = torch.sqrt(s_safe)
+    a = torch.atan2(2.0 * rn * t, torch.ones_like(rn))
+    d_exact = a / (w_safe * rn)
+    ap = 2.0 * t / (1.0 + 4.0 * t * t * s_safe)  # dA/drn
+    wu_exact = (ap * rn - a) / (w_safe * s_safe * rn)
+    d_taylor = (2.0 * t / w_safe) * (1.0 - (4.0 / 3.0) * t * t * s)
+    wu_taylor = -(16.0 / 3.0) * t**3 / w_safe
+    d = torch.where(small, d_taylor, d_exact)
+    wu = torch.where(small, wu_taylor, wu_exact)
+    return torch.where(pinhole, 1.0, d), torch.where(pinhole, 0.0, wu)
+
+
+def _fov_domega(s: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """dd/dw of the FOV scale at fixed geometry, the regressor of its
+    Gauss-Newton refit: (1 + T^2) / (w (1 + 4 T^2 s)) - A / (w^2 rn),
+    finite at rn -> 0 (A/rn -> 2T) and zero at the pinhole limit."""
+    w = _per_camera(dist[..., 0])
+    pinhole = torch.abs(w) < 1e-6
+    w_safe = torch.where(pinhole, torch.ones_like(w), w)
+    t = torch.tan(0.5 * w_safe)
+    small = s < 1e-12
+    s_safe = torch.where(small, torch.ones_like(s), s)
+    rn = torch.sqrt(s_safe)
+    a_over_rn = torch.where(small, 2.0 * t, torch.atan2(2.0 * rn * t, torch.ones_like(rn)) / rn)
+    dd = (1.0 + t * t) / (w_safe * (1.0 + 4.0 * t * t * s_safe)) - a_over_rn / (w_safe * w_safe)
+    return torch.where(pinhole, 0.0, dd)
+
+
+def _rational_scale(s: torch.Tensor, dist: torch.Tensor):
+    """(d, 2 dd/ds) of the OpenCV rational model: d = N/D with
+    N = 1 + k1 s + k2 s^2 + k3 s^3 and D = 1 + k4 s + k5 s^2 + k6 s^3
+    (``dist`` (F, 8) = (k1..k6, p1, p2)); exact everywhere (D = 1 at the
+    principal point)."""
+    k = [_per_camera(dist[..., i]) for i in range(6)]
+    num = 1.0 + s * (k[0] + s * (k[1] + s * k[2]))
+    den = 1.0 + s * (k[3] + s * (k[4] + s * k[5]))
+    dnum = k[0] + s * (2.0 * k[1] + s * (3.0 * k[2]))
+    dden = k[3] + s * (2.0 * k[4] + s * (3.0 * k[5]))
+    return num / den, 2.0 * (dnum * den - num * dden) / (den * den)
+
+
+def _fisheye_scale(s: torch.Tensor, dist: torch.Tensor):
+    """(m, m'/rn) of the equidistant theta-polynomial (OPENCV_FISHEYE) at
+    rn = sqrt(s): with theta = atan(rn) and theta_d = theta (1 + k1 theta^2
+    + k2 theta^4 + k3 theta^6 + k4 theta^8), m = theta_d / rn and
+    m'/rn = (theta_d'(theta) / (1 + rn^2) - m) / rn^2. Both tend to
+    1 + (k1 - 1/3) s and 2 (k1 - 1/3) at the principal point, the Taylor
+    branch below s = 1e-12; the exact branch sees s = 1 there, so a
+    gradient through it stays finite."""
+    k1, k2, k3, k4 = (_per_camera(dist[..., i]) for i in range(4))
+    small = s < 1e-12
+    s_safe = torch.where(small, torch.ones_like(s), s)
+    rn = torch.sqrt(s_safe)
+    th = torch.atan(rn)
+    th2 = th * th
+    poly = 1.0 + th2 * (k1 + th2 * (k2 + th2 * (k3 + th2 * k4)))
+    dpoly = k1 + th2 * (2.0 * k2 + th2 * (3.0 * k3 + th2 * (4.0 * k4)))
+    m_exact = th * poly / rn
+    wu_exact = ((poly + 2.0 * th2 * dpoly) / (1.0 + s_safe) - m_exact) / s_safe
+    c0 = k1 - (1.0 / 3.0)
+    return torch.where(small, 1.0 + c0 * s, m_exact), torch.where(small, 2.0 * c0, wu_exact)
+
+
+def _thin_prism_terms(state: BAState, g1, g2, f0: float, dist):
+    """Per-observation quantities of COLMAP's THIN_PRISM_FISHEYE (model
+    10): the equidistant base psi = (theta / |x_n|) x_n, then an
+    OPENCV-style polynomial and thin-prism shift in the theta plane:
+
+        rho2   = |psi|^2 = theta^2
+        radial = k1 rho2 + k2 rho2^2 + k3 rho2^3 + k4 rho2^4
+        du1    = psi1 radial + 2 p1 psi1 psi2 + p2 (rho2 + 2 psi1^2) + sx1 rho2
+        du2    = psi2 radial + p1 (rho2 + 2 psi2^2) + 2 p2 psi1 psi2 + sy1 rho2
+
+    ``dist`` (F, 8) = (k1, k2, k3, k4, p1, p2, sx1, sy1). Returns (m0, wu0,
+    psi1, psi2, du1, du2, J11, J12, J21, J22, s): (m0, wu0) the k = 0
+    fisheye scale and weight at s = |x_n|^2, J the shift's Jacobian wrt
+    psi, which sx1 and sy1 make asymmetric."""
     c = _per_camera(f0 / state.f)
-    p1 = _per_camera(dist[..., 2])
-    p2 = _per_camera(dist[..., 3])
+    s = c * c * (g1 * g1 + g2 * g2)
+    m0, wu0 = _fisheye_scale(s, dist.new_zeros(dist.shape[:-1] + (4,)))
+    psi1 = m0 * c * g1
+    psi2 = m0 * c * g2
+    rho2 = psi1 * psi1 + psi2 * psi2  # theta^2
+    k1, k2, k3, k4, p1, p2, sx1, sy1 = (_per_camera(dist[..., i]) for i in range(8))
+    radial = rho2 * (k1 + rho2 * (k2 + rho2 * (k3 + rho2 * k4)))
+    dradial = k1 + rho2 * (2.0 * k2 + rho2 * (3.0 * k3 + rho2 * (4.0 * k4)))
+    du1 = (psi1 * radial + 2.0 * p1 * psi1 * psi2 + p2 * (rho2 + 2.0 * psi1 * psi1)
+           + sx1 * rho2)
+    du2 = (psi2 * radial + p1 * (rho2 + 2.0 * psi2 * psi2) + 2.0 * p2 * psi1 * psi2
+           + sy1 * rho2)
+    two_dr = 2.0 * dradial
+    j11 = radial + psi1 * two_dr * psi1 + 2.0 * p1 * psi2 + 6.0 * p2 * psi1 + 2.0 * sx1 * psi1
+    j12 = psi1 * two_dr * psi2 + 2.0 * p1 * psi1 + 2.0 * p2 * psi2 + 2.0 * sx1 * psi2
+    j21 = psi2 * two_dr * psi1 + 2.0 * p1 * psi1 + 2.0 * p2 * psi2 + 2.0 * sy1 * psi1
+    j22 = radial + psi2 * two_dr * psi2 + 6.0 * p1 * psi2 + 2.0 * p2 * psi1 + 2.0 * sy1 * psi2
+    return m0, wu0, psi1, psi2, du1, du2, j11, j12, j21, j22, s
+
+
+def _tangential_terms(state: BAState, g1, g2, f0: float, dist):
+    """The tangential shift (t1, t2) = c h(g), c = f0/f, of (p1, p2) and its
+    symmetric Jacobian wrt g (T11, T12, T22), which adds onto the radial
+    2x2 chain; c's 1/f is the one extra camera dependence (the -t/f term
+    of the f column). (p1, p2) are columns 2 and 3 of OPENCV's (k1, k2,
+    p1, p2) and columns 6 and 7 of full OPENCV's (k1..k6, p1, p2)."""
+    c = _per_camera(f0 / state.f)
+    pcol = 6 if dist.shape[-1] == 8 else 2
+    p1 = _per_camera(dist[..., pcol])
+    p2 = _per_camera(dist[..., pcol + 1])
     g11, g22, g12 = g1 * g1, g2 * g2, g1 * g2
     t1 = c * (2.0 * p1 * g12 + p2 * (3.0 * g11 + g22))
     t2 = c * (p1 * (g11 + 3.0 * g22) + 2.0 * p2 * g12)
@@ -612,22 +740,40 @@ def _tangential_terms(state: BAState, g1, g2, f0: float, dist):
     return t1, t2, t11, t12, t22
 
 
+def _chain_rows(d11, d12, d21, d22, a1, a2, b1, b2, f0: float):
+    """The factor rows through the 2x2 Jacobian D = [[d11, d12], [d21,
+    d22]] of the distorted prediction wrt g: the point rows a verbatim, the
+    camera rows b as dg/dtheta (the u columns less 1/f0) with the
+    prediction's own +1/f0 added back. b1 and b2 are overwritten."""
+    d11, d12, d21, d22 = (d[..., None] for d in (d11, d12, d21, d22))
+    a1, a2 = d11 * a1 + d12 * a2, d21 * a1 + d22 * a2
+    inv_f0 = 1.0 / f0
+    b1[..., 1] -= inv_f0
+    b2[..., 2] -= inv_f0
+    b1, b2 = d11 * b1 + d12 * b2, d21 * b1 + d22 * b2
+    b1[..., 1] += inv_f0
+    b2[..., 2] += inv_f0
+    return a1, a2, b1, b2
+
+
 def _apply_distortion_chain(state: BAState, p, q, r, f0: float, dist, res_p, res_q, a1, a2,
                             b1, b2, model: str | None = None):
     """The residuals and the rank-2 Jacobian factors through the distortion
     model (the dense and the chunked derivative builds share it).
 
     The distorted prediction is d g + u/f0, plus the tangential shift t(g)
-    under OPENCV. The residual gains (d - 1) g (+ t); the point rows
-    (a, (..., C, F, 3)) chain through the 2x2 Jacobian D = d I +
+    under OPENCV and full OPENCV. The residual gains (d - 1) g (+ t); the
+    point rows (a, (..., C, F, 3)) chain through the 2x2 Jacobian D = d I +
     wu (f0/f)^2 g g^T (+ dt/dg, also symmetric) verbatim; the camera rows
-    (b, (..., C, F, 9)) differ from dg/dtheta in the u columns (dg/du =
-    dpi/du - 1/f0, and the prediction adds its own +1/f0 back) and the f
-    column (s and c depend on f directly: -(wu s / f) g - t/f). b1 and b2
-    are overwritten."""
+    (b, (..., C, F, 9)) differ from dg/dtheta in the u columns
+    (:func:`_chain_rows`) and the f column (s and c depend on f directly:
+    -(wu s / f) g - t/f). Thin prism has its own, asymmetric chain
+    (:func:`_apply_thin_prism_chain`). b1 and b2 are overwritten."""
     model = resolve_distortion_model(dist, model)
+    if model == "thin_prism":
+        return _apply_thin_prism_chain(state, p, q, r, f0, dist, res_p, res_q, a1, a2, b1, b2)
     g1, g2, s, d, wu = _distortion_terms(state, p, q, r, f0, dist, model)
-    tangential = model == "opencv"
+    tangential = model in ("opencv", "full_opencv")
     res_p = res_p + (d - 1.0) * g1
     res_q = res_q + (d - 1.0) * g2
     cw = wu * _per_camera(f0 / state.f) ** 2
@@ -641,14 +787,7 @@ def _apply_distortion_chain(state: BAState, p, q, r, f0: float, dist, res_p, res
         d11 = d11 + t11
         d12 = d12 + t12
         d22 = d22 + t22
-    d11, d12, d22 = d11[..., None], d12[..., None], d22[..., None]
-    a1, a2 = d11 * a1 + d12 * a2, d12 * a1 + d22 * a2
-    inv_f0 = 1.0 / f0
-    b1[..., 1] -= inv_f0  # b -> dg/dtheta (u columns only)
-    b2[..., 2] -= inv_f0
-    b1, b2 = d11 * b1 + d12 * b2, d12 * b1 + d22 * b2
-    b1[..., 1] += inv_f0  # + d(u/f0)/du
-    b2[..., 2] += inv_f0
+    a1, a2, b1, b2 = _chain_rows(d11, d12, d12, d22, a1, a2, b1, b2, f0)
     cf = wu * s / _per_camera(state.f)  # -(wu s / f) g on the f column
     b1[..., 0] -= cf * g1
     b2[..., 0] -= cf * g2
@@ -656,6 +795,38 @@ def _apply_distortion_chain(state: BAState, p, q, r, f0: float, dist, res_p, res
         inv_f = 1.0 / _per_camera(state.f)  # -t/f: c = f0/f explicit in t
         b1[..., 0] -= t1 * inv_f
         b2[..., 0] -= t2 * inv_f
+    return res_p, res_q, a1, a2, b1, b2
+
+
+def _apply_thin_prism_chain(state: BAState, p, q, r, f0: float, dist, res_p, res_q, a1, a2,
+                            b1, b2):
+    """The THIN_PRISM_FISHEYE chain: the prediction composes the
+    equidistant base with the theta-plane shift (:func:`_thin_prism_terms`),
+    so D = (I + J) M with M = m0 I + wu0 (f0/f)^2 g g^T is asymmetric, and
+    the f column gains G~/f - (I + J) g / (f (1 + s)) (G~ the distorted g
+    part), which is the fisheye one at zero shift. b1 and b2 are
+    overwritten."""
+    g1 = p / r - _per_camera(state.u[..., 0] / f0)
+    g2 = q / r - _per_camera(state.u[..., 1] / f0)
+    m0, wu0, _, _, du1, du2, j11, j12, j21, j22, s = _thin_prism_terms(state, g1, g2, f0, dist)
+    inv_c = _per_camera(state.f / f0)  # theta plane -> image coordinates
+    dug1 = du1 * inv_c
+    dug2 = du2 * inv_c
+    res_p = res_p + (m0 - 1.0) * g1 + dug1
+    res_q = res_q + (m0 - 1.0) * g2 + dug2
+    cw = wu0 * _per_camera(f0 / state.f) ** 2
+    m11 = m0 + cw * g1 * g1
+    m12 = cw * g1 * g2
+    m22 = m0 + cw * g2 * g2
+    d11 = (1.0 + j11) * m11 + j12 * m12
+    d12 = (1.0 + j11) * m12 + j12 * m22
+    d21 = j21 * m11 + (1.0 + j22) * m12
+    d22 = j21 * m12 + (1.0 + j22) * m22
+    a1, a2, b1, b2 = _chain_rows(d11, d12, d21, d22, a1, a2, b1, b2, f0)
+    inv_f = 1.0 / _per_camera(state.f)
+    damp = inv_f / (1.0 + s)
+    b1[..., 0] += (m0 * g1 + dug1) * inv_f - ((1.0 + j11) * g1 + j12 * g2) * damp
+    b2[..., 0] += (m0 * g2 + dug2) * inv_f - (j21 * g1 + (1.0 + j22) * g2) * damp
     return res_p, res_q, a1, a2, b1, b2
 
 
@@ -668,10 +839,16 @@ def _distorted_residual(state: BAState, p, q, r, x, f0: float, dist=None,
     if dist is None:
         return res_p, res_q
     model = resolve_distortion_model(dist, model)
+    if model == "thin_prism":
+        g1 = p / r - _per_camera(state.u[..., 0] / f0)
+        g2 = q / r - _per_camera(state.u[..., 1] / f0)
+        m0, _, _, _, du1, du2, *_ = _thin_prism_terms(state, g1, g2, f0, dist)
+        inv_c = _per_camera(state.f / f0)
+        return res_p + (m0 - 1.0) * g1 + du1 * inv_c, res_q + (m0 - 1.0) * g2 + du2 * inv_c
     g1, g2, _, d, _ = _distortion_terms(state, p, q, r, f0, dist, model)
     res_p = res_p + (d - 1.0) * g1
     res_q = res_q + (d - 1.0) * g2
-    if model == "opencv":
+    if model in ("opencv", "full_opencv"):
         t1, t2, _, _, _ = _tangential_terms(state, g1, g2, f0, dist)
         res_p = res_p + t1
         res_q = res_q + t2
@@ -687,35 +864,92 @@ def _huber_weights(state: BAState, x, vis, f0: float, delta: float,
     return vis * robust_weight(torch.sqrt(res_p**2 + res_q**2), delta, robust_kind)
 
 
+# The rational model's prediction is not jointly linear in (k1..k6, p1,
+# p2), but the algebraic residual D (T - t) - N g = 0, cross-multiplied by
+# the denominator, is linear in (k1, k2, k3, p1, p2) given D and in (k4,
+# k5, k6) given the rest; the refit alternates the two exact linear solves.
+FULL_OPENCV_ALTERNATIONS = 4
+_FOV_GN_STEPS = 6
+
+
 def fit_distortion(state: BAState, x, vis, f0: float, shared: bool = False,
-                   tangential: bool = False, model: str | None = None) -> torch.Tensor:
-    """Closed-form per-camera distortion refit at the current geometry.
+                   tangential: bool = False, model: str | None = None,
+                   dist=None) -> torch.Tensor:
+    """Distortion refit at the current geometry.
 
     The BAL radial prediction (1 + k1 s + k2 s^2) g + u/f0 is linear in
     (k1, k2), so the least-squares distortion for the state is a 2x2
-    normal-equation solve per camera; the OPENCV prediction is linear in
-    (k1, k2, p1, p2) too, a 4x4 solve (``tangential=True`` or
-    ``model="opencv"``). ``shared=True`` ties the parameters across the
-    cameras: the per-camera normal equations sum into one system. A
-    camera whose system is degenerate gets zeros."""
+    normal-equation solve per camera. OPENCV (``tangential=True`` or
+    ``model="opencv"``) and fisheye are linear in their four parameters
+    (4x4), thin prism in its eight (8x8). Full OPENCV alternates
+    ``FULL_OPENCV_ALTERNATIONS`` times a numerator and a denominator solve,
+    and FOV takes ``_FOV_GN_STEPS`` scalar Gauss-Newton steps on its angle;
+    both start from ``dist`` (``default_distortion`` when None). Every
+    pass is a sum over points (:func:`_refit_rounds`). ``shared=True``
+    ties the parameters across the cameras: the per-camera terms sum into
+    one system. A camera whose system is degenerate gets zeros (a FOV or
+    full-OPENCV camera keeps its current values)."""
     if model is None:
         model = "opencv" if tangential else "radial"
-    check_distortion_ported(model)
     _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
-    return _solve_distortion_lsq(_distortion_lsq_terms(state, p, q, r, x, vis, f0, model), shared)
+    cur = default_distortion(model, state.f.shape[-1], x.dtype, x.device) if dist is None else dist
+    for round_ in _refit_rounds(model):
+        terms = _refit_terms(state, p, q, r, x, vis, f0, model, cur, round_)
+        cur = _refit_solve(terms, cur, model, round_, shared)
+    return cur
+
+
+def _refit_rounds(model: str) -> tuple:
+    """The passes of one refit, each a sum over points and a solve: one
+    for the models linear in their parameters, the (numerator,
+    denominator) alternation for full OPENCV, the Gauss-Newton steps for
+    FOV."""
+    if model == "full_opencv":
+        return ("num", "den") * FULL_OPENCV_ALTERNATIONS
+    if model == "fov":
+        return (None,) * _FOV_GN_STEPS
+    return (None,)
+
+
+def _refit_terms(state: BAState, p, q, r, x, vis, f0: float, model: str, cur, round_):
+    """The (F, ``distortion_nterms(model)``) accumulands of one refit pass
+    at the current distortion ``cur``."""
+    if model == "full_opencv":
+        return _full_opencv_lsq_terms(state, p, q, r, x, vis, f0, cur, round_)
+    if model == "fov":
+        return _fov_gn_terms(state, p, q, r, x, vis, f0, cur)
+    return _distortion_lsq_terms(state, p, q, r, x, vis, f0, model)
+
+
+def _refit_solve(terms: torch.Tensor, cur, model: str, round_, shared: bool) -> torch.Tensor:
+    """The distortion after one refit pass from its summed terms."""
+    if model == "full_opencv":
+        return _solve_full_opencv_round(terms, cur, round_, shared)
+    if model == "fov":
+        return _solve_fov_step(terms, cur, shared)
+    return _solve_distortion_lsq(terms, shared)
+
+
+def _normal_terms(A: torch.Tensor, T: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
+    """(F, n^2 + n) vis-weighted normal equations of the regressors A
+    (P, F, n, 2) against the targets T (P, F, 2): the n x n matrix by rows,
+    then the right-hand side."""
+    m = torch.einsum("...pfai,...pfbi,...pf->...fab", A, A, vis)
+    rhs = torch.einsum("...pfai,...pfi,...pf->...fa", A, T, vis)
+    return torch.cat([m.reshape(m.shape[:-2] + (-1,)), rhs], dim=-1)
 
 
 def _distortion_lsq_terms(state: BAState, p, q, r, x, vis, f0: float, model="radial"):
     """Per-camera normal-equation accumulands of the linear-in-k fit, a sum
     over points (so the chunked and streamed cores add them up chunk by
     chunk): (F, 5) = (a11, a12, a22, b1, b2) for radial, (F, 20) = (the
-    4x4 normal matrix by rows, the 4 rhs) for OPENCV. vis is (P, F) or a
-    (P, 1) column. ``model`` also takes the bool ``tangential``."""
+    4x4 normal matrix by rows, the 4 rhs) for OPENCV and fisheye, (F, 72)
+    for thin prism. vis is (P, F) or a (P, 1) column. ``model`` also takes
+    the bool ``tangential``."""
     if isinstance(model, bool):
         model = "opencv" if model else "radial"
     elif model is None:
         model = "radial"
-    check_distortion_ported(model)
     vis = vis.expand(p.shape)
     r = torch.where(vis > 0, r, torch.ones_like(r))
     u1, u2 = _per_camera(state.u[..., 0] / f0), _per_camera(state.u[..., 1] / f0)
@@ -736,6 +970,41 @@ def _distortion_lsq_terms(state: BAState, p, q, r, x, vis, f0: float, model="rad
             torch.sum(vis * s * gt, dim=-2),
             torch.sum(vis * s2 * gt, dim=-2),
         ], dim=-1)
+    if model == "thin_prism":
+        # the theta-plane shift is linear in all 8 parameters; in image
+        # coordinates the regressors are the x_n-plane ones over c
+        m0, _, psi1, psi2, *_ = _thin_prism_terms(state, g1, g2, f0,
+                                                  g1.new_zeros(state.f.shape + (8,)))
+        rho2 = psi1 * psi1 + psi2 * psi2
+        # the target less the k = 0 equidistant base: (x - u)/f0 - m0 g
+        t1 = t1 + (1.0 - m0) * g1
+        t2 = t2 + (1.0 - m0) * g2
+        zero = torch.zeros_like(rho2)
+        A = torch.stack([
+            torch.stack([rho2 * psi1, rho2 * psi2], dim=-1),
+            torch.stack([rho2**2 * psi1, rho2**2 * psi2], dim=-1),
+            torch.stack([rho2**3 * psi1, rho2**3 * psi2], dim=-1),
+            torch.stack([rho2**4 * psi1, rho2**4 * psi2], dim=-1),
+            torch.stack([2.0 * psi1 * psi2, rho2 + 2.0 * psi2**2], dim=-1),
+            torch.stack([rho2 + 2.0 * psi1**2, 2.0 * psi1 * psi2], dim=-1),
+            torch.stack([rho2, zero], dim=-1),
+            torch.stack([zero, rho2], dim=-1),
+        ], dim=-2) * _per_camera(state.f / f0)[..., None, None]  # (P, F, 8, 2)
+        return _normal_terms(A, torch.stack([t1, t2], dim=-1), vis)
+    if model == "fisheye":
+        # regressors m0 theta^(2i) g against the target (x - u)/f0 - m0 g
+        small = s < 1e-12
+        s_safe = torch.where(small, torch.ones_like(s), s)
+        rn = torch.sqrt(s_safe)
+        th = torch.atan(rn)
+        m0 = torch.where(small, 1.0 - s / 3.0, th / rn)
+        t1 = t1 + (1.0 - m0) * g1
+        t2 = t2 + (1.0 - m0) * g2
+        th2 = torch.where(small, s, th * th)
+        base1, base2 = m0 * g1, m0 * g2
+        A = torch.stack([torch.stack([th2**i * base1, th2**i * base2], dim=-1)
+                         for i in range(1, 5)], dim=-2)  # (P, F, 4, 2)
+        return _normal_terms(A, torch.stack([t1, t2], dim=-1), vis)
     # OPENCV regressors, a 2-vector each per observation: the shift is
     # k1 A1 + k2 A2 + p1 A3 + p2 A4 (A3, A4 as in _tangential_terms)
     c = _per_camera(f0 / state.f)
@@ -746,32 +1015,117 @@ def _distortion_lsq_terms(state: BAState, p, q, r, x, vis, f0: float, model="rad
         torch.stack([2.0 * c * g12, c * (g11 + 3.0 * g22)], dim=-1),
         torch.stack([c * (3.0 * g11 + g22), 2.0 * c * g12], dim=-1),
     ], dim=-2)  # (..., P, F, 4, 2)
-    T = torch.stack([t1, t2], dim=-1)
-    m = torch.einsum("...pfai,...pfbi,...pf->...fab", A, A, vis)
-    rhs = torch.einsum("...pfai,...pfi,...pf->...fa", A, T, vis)
-    return torch.cat([m.reshape(m.shape[:-2] + (16,)), rhs], dim=-1)
+    return _normal_terms(A, torch.stack([t1, t2], dim=-1), vis)
+
+
+def _full_opencv_lsq_terms(state: BAState, p, q, r, x, vis, f0: float, dist, round_: str):
+    """(F, 30) accumulands of one round of the full-OPENCV alternation, a
+    sum over points: "num" solves (k1, k2, k3, p1, p2) with the denominator
+    D frozen, "den" solves (k4, k5, k6) with N and (p1, p2) frozen (its
+    regressors padded to the 5-column layout, so both rounds have one
+    shape)."""
+    vis = vis.expand(p.shape)
+    r = torch.where(vis > 0, r, torch.ones_like(r))
+    u1, u2 = _per_camera(state.u[..., 0] / f0), _per_camera(state.u[..., 1] / f0)
+    g1 = p / r - u1
+    g2 = q / r - u2
+    s = _per_camera((f0 / state.f) ** 2) * (g1 * g1 + g2 * g2)
+    t1 = x[..., 0] / f0 - u1  # the target T
+    t2 = x[..., 1] / f0 - u2
+    k = [_per_camera(dist[..., i]) for i in range(6)]
+    den = 1.0 + s * (k[3] + s * (k[4] + s * k[5]))
+    c = _per_camera(f0 / state.f)
+    g11, g22, g12 = g1 * g1, g2 * g2, g1 * g2
+    h11, h12 = 2.0 * c * g12, c * (3.0 * g11 + g22)  # dt/dp1, dt/dp2
+    h21, h22 = c * (g11 + 3.0 * g22), 2.0 * c * g12
+    if round_ == "num":
+        # D T - D t - N g = 0, t = p1 h_1 + p2 h_2:
+        # [s g, s^2 g, s^3 g, D h_1, D h_2] a = D T - g
+        A = torch.stack([
+            torch.stack([s * g1, s * g2], dim=-1),
+            torch.stack([s * s * g1, s * s * g2], dim=-1),
+            torch.stack([s**3 * g1, s**3 * g2], dim=-1),
+            torch.stack([den * h11, den * h21], dim=-1),
+            torch.stack([den * h12, den * h22], dim=-1),
+        ], dim=-2)
+        b1 = den * t1 - g1
+        b2 = den * t2 - g2
+    else:
+        # N g + D (ts - T) = 0 with ts the tangential shift:
+        # [s (ts - T), s^2 (ts - T), s^3 (ts - T)] b = (T - ts) - N g
+        p1c, p2c = _per_camera(dist[..., 6]), _per_camera(dist[..., 7])
+        ts1 = p1c * h11 + p2c * h12
+        ts2 = p1c * h21 + p2c * h22
+        num = 1.0 + s * (k[0] + s * (k[1] + s * k[2]))
+        d1 = ts1 - t1
+        d2 = ts2 - t2
+        zeros = torch.zeros_like(s)
+        A = torch.stack([
+            torch.stack([s * d1, s * d2], dim=-1),
+            torch.stack([s * s * d1, s * s * d2], dim=-1),
+            torch.stack([s**3 * d1, s**3 * d2], dim=-1),
+            torch.stack([zeros, zeros], dim=-1),
+            torch.stack([zeros, zeros], dim=-1),
+        ], dim=-2)
+        b1 = (t1 - ts1) - num * g1
+        b2 = (t2 - ts2) - num * g2
+    return _normal_terms(A, torch.stack([b1, b2], dim=-1), vis)
+
+
+def _fov_gn_terms(state: BAState, p, q, r, x, vis, f0: float, dist):
+    """(F, 2) = (gradient numerator, Gauss-Newton denominator) accumulands
+    of one scalar step on the FOV angle, a sum over points."""
+    r = torch.where(vis > 0, r, torch.ones_like(r))
+    u1, u2 = _per_camera(state.u[..., 0] / f0), _per_camera(state.u[..., 1] / f0)
+    g1 = p / r - u1
+    g2 = q / r - u2
+    s = _per_camera((f0 / state.f) ** 2) * (g1 * g1 + g2 * g2)
+    d, _ = _fov_scale(s, dist)
+    dd = _fov_domega(s, dist)
+    res1 = x[..., 0] / f0 - u1 - d * g1
+    res2 = x[..., 1] / f0 - u2 - d * g2
+    num = torch.sum(vis * dd * (res1 * g1 + res2 * g2), dim=-2)
+    den = torch.sum(vis * dd * dd * (g1 * g1 + g2 * g2), dim=-2)
+    return torch.stack([num, den], dim=-1)
+
+
+def _solve_fov_step(terms: torch.Tensor, dist: torch.Tensor, shared: bool) -> torch.Tensor:
+    """One Gauss-Newton update w += num / den from the summed (F, 2) terms;
+    a camera whose denominator is not above the dtype's smallest normal
+    number, or whose update is not finite, keeps its angle."""
+    if shared:
+        terms = torch.sum(terms, dim=0, keepdim=True).expand(terms.shape)
+    num, den = terms.unbind(-1)
+    safe = den > torch.finfo(terms.dtype).tiny
+    step = torch.where(safe, num / torch.where(safe, den, torch.ones_like(den)), 0.0)
+    new = dist[:, 0] + step
+    return torch.where(safe & torch.isfinite(new), new, dist[:, 0])[:, None]
 
 
 def _chunk_distortion_terms(cam: BAState, X_c, x_c, vis_c, f0: float, dist, model: str,
-                            huber_delta=None, robust_kind: str = "huber"):
-    """One chunk's normal-equation contribution to the closed-form refit
-    (:func:`_distortion_lsq_terms`), IRLS-weighted with ``huber_delta`` by
-    the residuals of the current model ``dist``."""
+                            huber_delta=None, robust_kind: str = "huber", cur=None,
+                            round_=None):
+    """One chunk's accumulands of a refit pass (:func:`_refit_terms`) at the
+    distortion ``cur`` (``dist`` when None), IRLS-weighted with
+    ``huber_delta`` by the residuals of the model ``dist`` the refit
+    started from."""
     _, p, q, r = calc_pqr(X_c, build_K(cam.f, cam.u, f0), cam.R, cam.t)
     r = torch.where(vis_c > 0, r, torch.ones_like(r))
     if huber_delta is not None:
         res_p, res_q = _distorted_residual(cam, p, q, r, x_c, f0, dist, model)
         vis_c = vis_c * robust_weight(torch.sqrt(res_p**2 + res_q**2), huber_delta, robust_kind)
-    return _distortion_lsq_terms(cam, p, q, r, x_c, vis_c, f0, model)
+    return _refit_terms(cam, p, q, r, x_c, vis_c, f0, model, dist if cur is None else cur, round_)
 
 
 def _solve_distortion_lsq(terms: torch.Tensor, shared: bool) -> torch.Tensor:
     """Distortion from the accumulated normal terms: (F, 5) -> radial
-    (F, 2) by the closed-form 2x2 solve, (F, 20) -> OPENCV (F, 4). A
-    camera whose determinant is not above the dtype's smallest normal
-    number gets zeros."""
+    (F, 2) by the closed-form 2x2 solve, (F, 20) -> OPENCV or fisheye
+    (F, 4), (F, 72) -> thin prism (F, 8). A camera whose determinant is not
+    above the dtype's smallest normal number gets zeros."""
+    if terms.shape[-1] == 72:
+        return _solve_distortion_lsq_n(terms, 8, shared)
     if terms.shape[-1] == 20:
-        return _solve_distortion_lsq4(terms, shared)
+        return _solve_distortion_lsq_n(terms, 4, shared)
     if shared:
         terms = torch.sum(terms, dim=0, keepdim=True).expand(terms.shape)
     a11, a12, a22, b1, b2 = terms.unbind(-1)
@@ -784,47 +1138,127 @@ def _solve_distortion_lsq(terms: torch.Tensor, shared: bool) -> torch.Tensor:
     return torch.stack([k1, k2], dim=-1)
 
 
-def _solve_distortion_lsq4(terms: torch.Tensor, shared: bool) -> torch.Tensor:
-    """(F, 4) OPENCV distortion from the accumulated (F, 20) terms."""
-    return _solve_distortion_lsq_n(terms, 4, shared)
+def _solve_spd_batch(m: torch.Tensor, rhs: torch.Tensor):
+    """(solution (F, n), ok (F,)) of the per-camera systems m x = rhs. A
+    camera whose matrix has no positive trace solves the identity instead
+    and is not ok, nor is one whose solution is not finite. The solve is
+    ``solve_ex``: a singular matrix in the batch gives that camera a
+    non-finite solution (and a nonzero ``info``), never an exception for
+    the whole batch."""
+    n = m.shape[-1]
+    tr = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+    safe = tr > torch.finfo(m.dtype).tiny
+    eye = torch.eye(n, dtype=m.dtype, device=m.device)
+    sol, info = torch.linalg.solve_ex(torch.where(safe[:, None, None], m, eye), rhs[..., None])
+    sol = sol[..., 0]
+    return sol, safe & (info == 0) & torch.isfinite(sol).all(dim=-1)
 
 
 def _solve_distortion_lsq_n(terms: torch.Tensor, n: int, shared: bool) -> torch.Tensor:
     """(F, n) distortion from accumulated (F, n^2 + n) normal terms, an
-    n x n solve per camera. A camera whose matrix has no positive trace
-    solves the identity instead, and one whose solution is not finite gets
-    zeros, as in the JAX package. The solve is ``solve_ex``: a singular
-    matrix in the batch gives that camera a non-finite solution (and a
-    nonzero ``info``), never an exception for the whole batch."""
+    n x n solve per camera (:func:`_solve_spd_batch`); a camera that is not
+    ok gets zeros, as in the JAX package."""
     nf = terms.shape[0]
     if shared:
         terms = torch.sum(terms, dim=0, keepdim=True).expand(terms.shape)
-    m = terms[:, : n * n].reshape(nf, n, n)
-    rhs = terms[:, n * n:]
-    tr = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
-    safe = tr > torch.finfo(terms.dtype).tiny
-    eye = torch.eye(n, dtype=m.dtype, device=m.device)
-    m_s = torch.where(safe[:, None, None], m, eye)
-    sol, info = torch.linalg.solve_ex(m_s, rhs[..., None])
-    sol = sol[..., 0]
-    ok = safe & (info == 0) & torch.isfinite(sol).all(dim=-1)
+    sol, ok = _solve_spd_batch(terms[:, : n * n].reshape(nf, n, n), terms[:, n * n:])
     return torch.where(ok[:, None], sol, torch.zeros_like(sol))
 
 
+def _solve_full_opencv_round(terms: torch.Tensor, dist: torch.Tensor, round_: str,
+                             shared: bool) -> torch.Tensor:
+    """The (F, 8) distortion after one alternation round, from its summed
+    (F, 30) terms: "num" updates (k1, k2, k3, p1, p2), "den" (k4, k5, k6); a
+    camera whose system is degenerate keeps its current values."""
+    nf = terms.shape[0]
+    if shared:
+        terms = torch.sum(terms, dim=0, keepdim=True).expand(terms.shape)
+    n_unk = 5 if round_ == "num" else 3
+    m = terms[:, :25].reshape(nf, 5, 5)[:, :n_unk, :n_unk]
+    sol, ok = _solve_spd_batch(m, terms[:, 25:25 + n_unk])
+    if round_ == "num":
+        cur = torch.cat([dist[:, 0:3], dist[:, 6:8]], dim=-1)
+        new = torch.where(ok[:, None], sol, cur)
+        return torch.cat([new[:, 0:3], dist[:, 3:6], new[:, 3:5]], dim=-1)
+    new = torch.where(ok[:, None], sol, dist[:, 3:6])
+    return torch.cat([dist[:, 0:3], new, dist[:, 6:8]], dim=-1)
+
+
+def distort_points(x: torch.Tensor, f: torch.Tensor, u: torch.Tensor | None = None,
+                   f0: float = 1.0, distortion=None, distortion_model: str | None = "auto"):
+    """Pinhole image points (P, F, 2), f0-normalized, to their distorted
+    positions under ``distortion`` (any family) for cameras of focal length
+    f (F,) and principal point u (F, 2) (zero when None): the forward half
+    of :func:`undistort_points`."""
+    if distortion is None:
+        return x
+    u = x.new_zeros(f.shape + (2,)) if u is None else u
+    model = resolve_distortion_model(distortion, distortion_model)
+    g1 = x[..., 0] - _per_camera(u[..., 0] / f0)
+    g2 = x[..., 1] - _per_camera(u[..., 1] / f0)
+    s1, s2, _ = _distortion_shift_and_jacobian(f, u, f0, distortion, model, g1, g2)
+    return x + torch.stack([s1, s2], dim=-1)
+
+
+def _distortion_shift_and_jacobian(f, u, f0: float, dist, model: str, g1, g2):
+    """(shift1, shift2, D) of the distortion at g: the distorted prediction
+    is g + shift (+ u/f0) and D = (d11, d12, d21, d22) its exact 2x2
+    Jacobian wrt g, read off the shared chain (:func:`_apply_distortion_chain`)
+    fed the identity as point rows, so every model, the asymmetric thin
+    prism too, takes one code path. The chain writes the camera rows in
+    place, so they are fresh tensors; it reads only their first three
+    columns."""
+    nf = f.shape[0]
+    st = BAState(X=g1.new_zeros((0, 3)), f=f, u=u, t=g1.new_zeros((nf, 3)),
+                 R=torch.eye(3, dtype=g1.dtype, device=g1.device).expand(nf, 3, 3))
+    p = g1 + _per_camera(u[..., 0] / f0)
+    q = g2 + _per_camera(u[..., 1] / f0)
+    e1 = torch.stack([torch.ones_like(g1), torch.zeros_like(g1)], dim=-1)
+    e2 = e1.flip(-1)
+    zero = torch.zeros_like(g1)
+    s1, s2, row1, row2, _, _ = _apply_distortion_chain(
+        st, p, q, torch.ones_like(g1), f0, dist, zero, zero, e1, e2,
+        g1.new_zeros(g1.shape + (3,)), g1.new_zeros(g1.shape + (3,)), model)
+    return s1, s2, (row1[..., 0], row1[..., 1], row2[..., 0], row2[..., 1])
+
+
+def undistort_points(x: torch.Tensor, f: torch.Tensor, u: torch.Tensor | None = None,
+                     f0: float = 1.0, distortion=None, distortion_model: str | None = "auto",
+                     iters: int = 10) -> torch.Tensor:
+    """Observed (distorted) image points (P, F, 2), f0-normalized, to their
+    pinhole positions: the inverse of :func:`distort_points` for every
+    family, as COLMAP's image_undistorter and cv::undistortPoints give it.
+    Each point solves distort(g) = g_obs by Newton on the chain's exact
+    2x2 Jacobian from g_obs, ``iters`` steps; no step reads the host."""
+    if distortion is None:
+        return x
+    u = x.new_zeros(f.shape + (2,)) if u is None else u
+    model = resolve_distortion_model(distortion, distortion_model)
+    t1 = x[..., 0] - _per_camera(u[..., 0] / f0)  # the observed, distorted g
+    t2 = x[..., 1] - _per_camera(u[..., 1] / f0)
+    g1, g2 = t1, t2
+    for _ in range(iters):
+        s1, s2, (d11, d12, d21, d22) = _distortion_shift_and_jacobian(f, u, f0, distortion,
+                                                                      model, g1, g2)
+        r1 = g1 + s1 - t1  # the residual of distort(g) = t
+        r2 = g2 + s2 - t2
+        det = d11 * d22 - d12 * d21
+        det = torch.where(torch.abs(det) > 1e-30, det, torch.ones_like(det))
+        g1, g2 = g1 - (d22 * r1 - d12 * r2) / det, g2 - (d11 * r2 - d21 * r1) / det
+    return torch.stack([g1 + _per_camera(u[..., 0] / f0), g2 + _per_camera(u[..., 1] / f0)],
+                       dim=-1)
+
+
 def _check_ported(config: LMConfig, axis_name=None, dist=None, solver=None) -> str:
-    """Raise for the options whose code is not ported yet: the sharded
-    cores, the solver hook, and a distortion model other than radial and
-    OPENCV when the run models distortion (``dist`` given or
-    ``distortion_rounds > 0``), with ``NotImplementedError`` naming the
-    model. An unknown loss or model name or a column count that does not
-    fit the model raises ``ValueError``. Returns the resolved model name."""
+    """Raise ``NotImplementedError`` for the options whose code is not
+    ported yet: the sharded cores and the solver hook. An unknown loss or
+    distortion-model name or a column count that does not fit the model
+    raises ``ValueError``. Returns the resolved model name."""
     if axis_name is not None:
         raise NotImplementedError("the sharded cores are not ported yet")
     if solver is not None:
         raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet")
     model = resolve_distortion_model(dist, config.distortion_model)
-    if dist is not None or config.distortion_rounds > 0:
-        check_distortion_ported(model)
     resolve_robust(config.robust)
     return model
 
@@ -832,7 +1266,8 @@ def _check_ported(config: LMConfig, axis_name=None, dist=None, solver=None) -> s
 def _prepare_distortion(distortion, config: LMConfig, nf: int, lane_dims: int, dtype, device):
     """(dist, model) of a run: the caller's distortion as a (F, n) tensor
     in the problem's dtype and on its device, or the refit's zero start
-    when ``distortion_rounds > 0`` and none is given; dist is None for a
+    (``default_distortion``) when ``distortion_rounds > 0`` and none is
+    given; dist is None for a
     pinhole run. Distortion is for one problem: with lane dimensions it
     raises ``ValueError``, as the JAX package's batched paths take none."""
     model = _check_ported(config, dist=distortion)
@@ -1067,15 +1502,16 @@ def bundle_adjust(
     and the retries the lanes took together (``n_solver_retries``, summed
     over every LM segment).
 
-    ``distortion`` (one problem only): (F, 2) BAL radial (k1, k2) or
-    (F, 4) OPENCV (k1, k2, p1, p2) (``resolve_distortion_model`` with
-    ``config.distortion_model``), held fixed unless
-    ``config.distortion_rounds`` > 0. Then each of those rounds first
-    refits it in closed form at the current geometry (:func:`fit_distortion`,
+    ``distortion`` (one problem only): (F, 2) BAL radial (k1, k2), (F, 4)
+    OPENCV (k1, k2, p1, p2) or fisheye (k1..k4), (F, 8) full OPENCV
+    (k1..k6, p1, p2) or thin prism (k1..k4, p1, p2, sx1, sy1), (F, 1) FOV
+    (``resolve_distortion_model`` with ``config.distortion_model``), held
+    fixed unless ``config.distortion_rounds`` > 0. Then each of those
+    rounds first refits it at the current geometry (:func:`fit_distortion`,
     per camera or ``distortion_shared``, under a robust loss with the IRLS
     weights of the current distorted residuals) and then runs an LM
     segment; a last segment follows the last refit. With no
-    ``distortion`` the refit starts from zero. ``n_iter`` counts every
+    ``distortion`` the refit starts from ``default_distortion``. ``n_iter`` counts every
     segment, the log covers the last one, and the result carries the
     final ``distortion``. Distortion is invariant under the similarity
     gauge, so it is neither normalized nor restored."""
@@ -1097,7 +1533,7 @@ def bundle_adjust(
             vis_fit = _huber_weights(state0, x, vis, f0, config.huber_delta, robust_kind, dist,
                                      model)
         dist = fit_distortion(state0, x, vis_fit, f0, shared=config.distortion_shared,
-                              model=model)
+                              model=model, dist=dist)
         seg = lm_lanes(x, state0, vis, free, f0, seg_cfg, init_c=c_seg, init_nu=nu_seg,
                        dist=dist, model=model)
         state0, c_seg, nu_seg = seg.state, seg.c, seg.nu

@@ -7,11 +7,12 @@ each chunk's point update and sums the trial error. Only one chunk's
 derivative planes live at a time.
 
 Two builds: the fused one (``ops/fused_schur.py``, the K2 kernel on the
-card) runs the pinhole and the BAL radial models; the OPENCV model, whose
-tangential chain the fused planes do not carry, takes the non-fused build
-(``_build_system``): per chunk the camera-major blocks, Y = L⁻¹F written
-K-major, and K1's lower tiles of YᵀY summed into one accumulator that is
-mirrored once after the chunks. On the card a float32 Y goes through K1
+card) runs the pinhole and the BAL radial models; every other distortion
+family (OPENCV, fisheye, full OPENCV, FOV, thin prism), whose chain the
+fused planes do not carry, takes the non-fused build (``_build_system``):
+per chunk the camera-major blocks, Y = L⁻¹F written K-major, and K1's
+lower tiles of YᵀY summed into one accumulator that is mirrored once after
+the chunks. On the card a float32 Y goes through K1
 or raises; there is no library product in its place.
 
 The damping protocol, stopping rules and gauge are the JAX package's: the
@@ -30,11 +31,12 @@ host-streamed cores.
 Robust losses run as IRLS, as in the JAX package: every retry's build
 weights each observation from its residual at the current state, and the
 accept test, the Nielsen gain ratio and the stop test compare with the
-weighted E that build returns. ``distortion_rounds`` alternates the
-closed-form refit (``fit_distortion_chunked``, one pass over the chunks)
-with LM segments, as the dense core does. The fisheye, full OPENCV, FOV and
-thin prism models and the sharded (``axis_name``) variant are not ported
-yet and raise ``NotImplementedError``.
+weighted E that build returns. ``distortion_rounds`` alternates the refit
+(``fit_distortion_chunked``: one pass over the chunks for the models linear
+in their parameters, eight for the full-OPENCV alternation, six for the FOV
+Gauss-Newton steps) with LM segments, as the dense core does. The sharded
+(``axis_name``) variant is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,10 +70,11 @@ from .bundle_adjustment import (
     _prepare_distortion,
     _prepare_problem,
     _reduced_camera_system,
-    _solve_distortion_lsq,
+    _refit_rounds,
+    _refit_solve,
     _state_error,
     build_K,
-    check_distortion_ported,
+    default_distortion,
     distortion_nterms,
     resolve_distortion_model,
     resolve_robust,
@@ -211,7 +214,7 @@ def lm_optimize_chunked(
     """Chunk-streamed LM with the dense core's protocol, through the
     distortion model ``dist`` (held fixed) when given. The fused build
     runs the pinhole and the radial model, the non-fused build (K1 on the
-    card) the OPENCV model. Returns (state, error, c, nu, n_iter,
+    card) every other family. Returns (state, error, c, nu, n_iter,
     total_solver_retries, log): the log is ``{"reprojection_error":
     (max_iter + 1,)}`` with ``config.record_log`` (zero past the last
     iteration), else None."""
@@ -327,9 +330,9 @@ def bundle_adjust_chunked(
     segmented run resumes through ``init_c``/``init_nu``.
 
     ``distortion`` / ``config.distortion_rounds``: the BAL radial (fused
-    build) or OPENCV (non-fused build) model, held fixed or alternated
-    with its closed-form refit (``fit_distortion_chunked``) as in the
-    dense core. ``n_iter`` counts every LM segment; as in the JAX package
+    build) or any other family (non-fused build), held fixed or alternated
+    with its refit (``fit_distortion_chunked``) as in the dense core.
+    ``n_iter`` counts every LM segment; as in the JAX package
     ``log["n_solver_retries"]`` and the recorded E cover the last segment,
     and ``log["n_solver_retries_total"]`` counts every segment's retries."""
     x, vis, state0, free, info = _prepare_problem(
@@ -367,17 +370,17 @@ def bundle_adjust_chunked(
 def fit_distortion_chunked(state: BAState, x, vis, f0: float, chunk_size: int,
                            shared: bool = False, huber_delta: float | None = None, dist=None,
                            model: str | None = None, robust_kind: str = "huber") -> torch.Tensor:
-    """The closed-form distortion refit (``fit_distortion``) with its
-    normal-equation terms summed over point chunks, so no more than one
-    chunk's terms exist at a time; it equals the dense refit on the same
-    data. With ``huber_delta`` the terms are IRLS-weighted by the
-    residuals of the current model ``dist``. The model follows ``dist``'s
-    columns unless ``model`` names it. x (P, F, 2) and
-    vis (P, F) or (P, 1) are tensors on one device; the tail chunk is
-    padded with zero visibility."""
+    """The distortion refit (``fit_distortion``) with each pass's terms
+    summed over point chunks, so no more than one chunk's terms exist at a
+    time; it equals the dense refit on the same data. The full-OPENCV
+    alternation and the FOV steps start from ``dist`` (``default_distortion``
+    when None) and take one pass over the chunks each. With
+    ``huber_delta`` the terms are IRLS-weighted by the residuals of the
+    model ``dist``. The model follows ``dist``'s columns unless ``model``
+    names it. x (P, F, 2) and vis (P, F) or (P, 1) are tensors on one
+    device; the tail chunk is padded with zero visibility."""
     if model is None:
         model = resolve_distortion_model(dist, "auto")
-    check_distortion_ported(model)
     npts = x.shape[0]
     pad = (-npts) % chunk_size
     X = state.X
@@ -386,8 +389,13 @@ def fit_distortion_chunked(state: BAState, x, vis, f0: float, chunk_size: int,
         vis = torch.cat([vis, vis.new_zeros((pad,) + vis.shape[1:])])
         X = torch.cat([X, X.mean(dim=0).expand(pad, 3)])
     cam = state._replace(X=X[:0])
-    terms = x.new_zeros((cam.f.shape[0], distortion_nterms(model)))
-    for X_c, x_c, vis_c in zip(X.split(chunk_size), x.split(chunk_size), vis.split(chunk_size)):
-        terms = terms + _chunk_distortion_terms(cam, X_c, x_c, vis_c, f0, dist, model,
-                                                huber_delta, robust_kind)
-    return _solve_distortion_lsq(terms, shared)
+    nf = cam.f.shape[0]
+    cur = default_distortion(model, nf, x.dtype, x.device) if dist is None else dist
+    chunks = list(zip(X.split(chunk_size), x.split(chunk_size), vis.split(chunk_size)))
+    for round_ in _refit_rounds(model):
+        terms = x.new_zeros((nf, distortion_nterms(model)))
+        for X_c, x_c, vis_c in chunks:
+            terms = terms + _chunk_distortion_terms(cam, X_c, x_c, vis_c, f0, dist, model,
+                                                    huber_delta, robust_kind, cur, round_)
+        cur = _refit_solve(terms, cur, model, round_, shared)
+    return cur

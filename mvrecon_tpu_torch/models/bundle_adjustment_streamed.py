@@ -26,10 +26,11 @@ that K1 reads) and returns the weighted E, the retry's accept baseline;
 pass 2 sums the trial error under the same weights. No (P, F) weight
 array exists.
 
-The BAL radial and OPENCV distortion models run through both passes and
-the starting error, as in the dense core; with ``distortion_rounds`` each
-round's closed-form refit adds one streaming pass that sums the per-camera
-normal equations chunk by chunk.
+Every distortion family runs through both passes and the starting error,
+as in the dense core; with ``distortion_rounds`` each round's refit adds
+streaming passes that sum its per-camera terms chunk by chunk: one for the
+models linear in their parameters, eight for the full-OPENCV alternation,
+six for the FOV Gauss-Newton steps.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ from .bundle_adjustment import (
     _damped_schur_factor,
     _prepare_distortion,
     _reduced_camera_system,
-    _solve_distortion_lsq,
+    _refit_rounds,
+    _refit_solve,
     _state_error,
     build_K,
     distortion_nterms,
@@ -275,13 +277,11 @@ def bundle_adjust_streamed(
     the results are identical either way. ``timer`` (an ``EventTimer``)
     records ``pass1``, ``pass2`` and ``h2d`` spans on the card.
 
-    ``distortion`` / ``config.distortion_rounds``: the BAL radial or
-    OPENCV model, held fixed or alternated with its closed-form refit as in
-    the dense core; each refit's normal terms are summed over one
-    streaming pass. ``n_iter`` and ``n_solver_retries`` count every LM
-    segment. The other distortion families raise ``NotImplementedError``
-    naming the model; an unknown loss name raises ``ValueError``
-    (``resolve_robust``)."""
+    ``distortion`` / ``config.distortion_rounds``: any distortion family,
+    held fixed or alternated with its refit as in the dense core; each
+    refit pass's terms are summed over one streaming pass. ``n_iter`` and
+    ``n_solver_retries`` count every LM segment. An unknown loss or model
+    name raises ``ValueError``."""
     dev = resolve_device(device)
     x_host = np.asarray(x_host)
     dt = result_dtype(x_host)
@@ -323,13 +323,17 @@ def bundle_adjust_streamed(
         return e
 
     def fit_distortion_streamed(cam_s, X_s, dist):
-        """The closed-form refit, its normal terms summed over one
-        streaming pass."""
-        terms = torch.zeros((nf, distortion_nterms(model)), dtype=dt, device=dev)
-        for lo, hi, x_c, vis_c in feed:
-            terms = terms + _chunk_distortion_terms(cam_s, get_X_chunk(X_s, lo, hi), x_c, vis_c,
-                                                    f0, dist, model, huber_delta, robust_kind)
-        return _solve_distortion_lsq(terms, config.distortion_shared)
+        """The refit from ``dist``, each pass's terms summed over one
+        streaming pass and IRLS-weighted by ``dist``'s residuals."""
+        cur = dist
+        for round_ in _refit_rounds(model):
+            terms = torch.zeros((nf, distortion_nterms(model)), dtype=dt, device=dev)
+            for lo, hi, x_c, vis_c in feed:
+                terms = terms + _chunk_distortion_terms(
+                    cam_s, get_X_chunk(X_s, lo, hi), x_c, vis_c, f0, dist, model, huber_delta,
+                    robust_kind, cur, round_)
+            cur = _refit_solve(terms, cur, model, round_, config.distortion_shared)
+        return cur
 
     def span(name):
         return timer.span(name) if timer is not None else contextlib.nullcontext()

@@ -28,10 +28,9 @@ fails gives NaN blocks, as ``cho_factor`` does there. ``ba_covariance``
 takes leading scene dimensions as lanes (``vmap`` in the JAX package);
 ``ba_covariance_chunked`` streams point chunks of a device-resident
 problem; ``ba_covariance_streamed`` streams them from host memory through
-the streamed core's ``_ChunkFeed``. With ``distortion`` (BAL radial or
-OPENCV, held at the given values) the blocks are those of the distorted
-residuals, plain or IRLS-weighted; the other families raise
-``NotImplementedError`` naming the model.
+the streamed core's ``_ChunkFeed``. With ``distortion`` (any family, held
+at the given values) the blocks are those of the distorted residuals,
+plain or IRLS-weighted.
 """
 
 from __future__ import annotations
@@ -188,8 +187,8 @@ def ba_covariance(
     so that the gauge conditioning matches the optimization's. Leading
     dimensions of x (..., P, F, 2) and the state are lanes, each its own
     problem. Runs on the card unless ``device`` says otherwise; the working
-    dtype is x's. ``distortion`` (one problem) is the BAL radial (F, 2) or
-    OPENCV (F, 4) model of the solution, as ``bundle_adjust`` returns it."""
+    dtype is x's. ``distortion`` (one problem) is the model of the solution, any
+    family, as ``bundle_adjust`` returns it."""
     huber_delta, robust_kind = _robust_args(config)
     x, vis, state, free, info = _prepare_problem(x, X, K, R, t, f0, visibility, axis, device)
     dist, model = _distortion_args(distortion, config, x.shape[-2], x.dim() - 3, x.dtype,

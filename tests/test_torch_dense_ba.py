@@ -224,18 +224,26 @@ def test_bundle_adjust_float32_matches_jax(damping):
     assert abs(tres["n_iter"] - int(jres.n_iter)) <= 1
 
 
-UNPORTED_DISTORTION = (("fisheye", 4), ("full_opencv", 8), ("fov", 1), ("thin_prism", 8))
+SECOND_DISTORTION = (("fisheye", 4), ("full_opencv", 8), ("fov", 1), ("thin_prism", 8))
 
 
 def test_unported_options_raise():
-    """The distortion families not ported yet raise, naming the model,
-    whether refit from zero or given; so does the solver hook."""
+    """The solver hook is not ported and raises. The distortion families of
+    the second slice, which raised here before, now run as JAX's
+    ``bundle_adjust`` does, refit from their default start and given
+    (E rtol 1e-8, the same iterations)."""
     prob = _problem(6, 5)
-    for model, ncols in UNPORTED_DISTORTION:
-        for cfg, kw in ((LMConfig(distortion_rounds=1, distortion_model=model), {}),
-                        (LMConfig(distortion_model=model), {"distortion": np.zeros((6, ncols))})):
-            with pytest.raises(NotImplementedError, match=model):
-                tba.bundle_adjust(*prob, config=cfg, device="cpu", **kw)
+    for model, ncols in SECOND_DISTORTION:
+        given = np.full((6, ncols), 0.5 if model == "fov" else 0.01)
+        for fields, dist in ((dict(distortion_rounds=1), None), ({}, given)):
+            fields = dict(fields, distortion_model=model, max_iter=2, scale_factor=2.0)
+            want = jba.bundle_adjust(*map(jnp.asarray, prob), config=JLMConfig(**fields),
+                                     distortion=None if dist is None else jnp.asarray(dist))
+            got = tba.bundle_adjust(*prob, config=LMConfig(**fields), distortion=dist,
+                                    device="cpu")
+            np.testing.assert_allclose(float(got.error), float(want.error), rtol=1e-8,
+                                       err_msg=model)
+            assert got.n_iter == int(want.n_iter) and got.distortion.shape == (6, ncols)
     fields, x, vis, free = _normalized(6, 5)
     state = ba_state_from_numpy(*fields, "cpu", torch.float64)
     args = [torch.from_numpy(a) for a in (x,)] + [state] + [torch.from_numpy(a) for a in (vis, free)]

@@ -4,8 +4,9 @@ tube in 6 views, rendered through each model with JAX's own
 ``_distortion_terms`` / ``_tangential_terms``.
 
 - ``resolve_distortion_model`` spellings and errors (an explicit fisheye
-  with 4 columns is not OPENCV, and raises as not ported),
-  ``default_distortion`` and ``distortion_nterms``;
+  with 4 columns is not OPENCV, and runs as JAX's fisheye does; the other
+  families of the second slice pass the checks), ``default_distortion``
+  and ``distortion_nterms``;
 - ``_distortion_terms``, ``_tangential_terms``, ``_apply_distortion_chain``
   and ``_distorted_residual`` in float64 to 1e-12, with and without a mask;
   ``_compute_derivs`` with each model to 1e-10;
@@ -53,7 +54,7 @@ TRUTH = {
                                     -0.012 + 0.005 * rng.standard_normal(NF)], -1),
 }
 MODELS = list(TRUTH)
-UNPORTED = (("fisheye", 4), ("full_opencv", 8), ("fov", 1), ("thin_prism", 8))
+SECOND_FAMILIES = (("fisheye", 4), ("full_opencv", 8), ("fov", 1), ("thin_prism", 8))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -144,22 +145,30 @@ def test_resolve_distortion_model_spellings_and_errors():
         with pytest.raises(ValueError):
             jba.resolve_distortion_model(dist, model)
     prob, _, _ = _problem("opencv")
-    with pytest.raises(NotImplementedError, match="fisheye"):
-        tba.bundle_adjust(*prob, axis=AXIS, config=LMConfig(distortion_model="fisheye"),
-                          distortion=np.zeros((NF, 4)), device="cpu")
+    fields = dict(distortion_model="fisheye", max_iter=1, scale_factor=2.0)
+    want = jba.bundle_adjust(*map(jnp.asarray, prob), axis=AXIS, config=JLMConfig(**fields),
+                             distortion=jnp.zeros((NF, 4)))
+    got = tba.bundle_adjust(*prob, axis=AXIS, config=LMConfig(**fields),
+                            distortion=np.zeros((NF, 4)), device="cpu")
+    np.testing.assert_allclose(float(got.error), float(want.error), rtol=1e-8)
+    # at k = 0 the fisheye base theta/|rho| is no pinhole, as OPENCV's is
+    opencv = tba.bundle_adjust(*prob, axis=AXIS, config=LMConfig(max_iter=1, scale_factor=2.0),
+                               distortion=np.zeros((NF, 4)), device="cpu")
+    assert abs(float(opencv.error) - float(got.error)) > 1e-3 * float(got.error)
     with pytest.raises(ValueError, match="columns"):
         tba.bundle_adjust(*prob, axis=AXIS, config=LMConfig(distortion_model="radial"),
                           distortion=np.zeros((NF, 4)), device="cpu")
-    for model, ncols in UNPORTED:
-        with pytest.raises(NotImplementedError, match=model):
-            tba.check_distortion_ported(model)
+    for model, ncols in SECOND_FAMILIES:
+        assert tba.resolve_distortion_model(np.zeros((NF, ncols)), model) == model
+        cfg = LMConfig(distortion_model=model, distortion_rounds=1)
+        assert tba._check_ported(cfg, dist=np.zeros((NF, ncols))) == model
     # a model named in the config alone changes nothing for a pinhole run
     res = tba.bundle_adjust(*prob, axis=AXIS, device="cpu",
                             config=LMConfig(distortion_model="fisheye", max_iter=1))
     assert res.distortion is None
 
 
-@pytest.mark.parametrize("model", [m for m, _ in UNPORTED] + MODELS)
+@pytest.mark.parametrize("model", [m for m, _ in SECOND_FAMILIES] + MODELS)
 def test_default_distortion_and_nterms(model):
     want = np.asarray(jba.default_distortion(model, NF, jnp.float64))
     got = tba.default_distortion(model, NF, torch.float64)

@@ -3,7 +3,10 @@
 - no module of ``mvrecon_tpu_torch``, and neither ``chip_smoke.py`` nor
   the port's scripts that run on the card, imports JAX or the JAX package (checked on the AST: the interpreter may have
   JAX loaded already, so ``sys.modules`` proves nothing);
-- entry points run on the card by default and raise without one;
+- entry points run on the card by default and raise without one, the
+  ``bal`` subcommand too;
+- the port's ``runtime/io.py`` imports numpy and the standard library
+  only;
 - the kernel wrappers ``syrk_acc`` and ``syrk_lower`` have no ``try``
   around their launch and take the plain version only for CPU tensors.
 """
@@ -149,3 +152,21 @@ def test_euclidean_cli_runs_on_cpu(capsys):
     assert rec["dtype"] == "float64" and rec["calib_status"] == 0 and rec["ba_n_iter"] > 0
     assert set(rec["stage_walls_s"]) == {"perspective_self_calibration", "bundle_adjustment"}
     assert rec["E_vs_noise_floor"] < 1.5
+
+
+def test_bal_defaults_to_the_card(monkeypatch, tmp_path):
+    from mvrecon_tpu_torch.__main__ import main
+    from mvrecon_tpu_torch.runtime.io import save_bal
+
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "problem.bal")
+    save_bal(path, rng.standard_normal((3, 5, 2)), np.ones((5, 3)), rng.standard_normal((5, 3)),
+             np.broadcast_to(np.eye(3), (3, 3, 3)), rng.standard_normal((3, 3)), np.ones(3))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["bal", path])
+
+
+def test_io_imports_numpy_and_the_standard_library_only():
+    mods = {m.split(".")[0] for m in _imported_modules(PORT / "runtime" / "io.py")}
+    assert mods <= {"__future__", "typing", "os", "struct", "numpy"}, mods

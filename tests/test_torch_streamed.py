@@ -11,8 +11,6 @@ package on the CPU, on the same numpy inputs:
 - the streamed core in float32 against JAX's float32 chunked core.
 """
 
-import dataclasses
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -225,11 +223,21 @@ def test_streamed_float32_matches_jax_chunked_float32():
 @pytest.mark.parametrize("change", [dict(distortion_rounds=1, distortion_model=m)
                                     for m in ("fisheye", "full_opencv", "fov", "thin_prism")])
 def test_streamed_unported_options_raise(change):
-    """The distortion families not ported yet raise, naming the model."""
+    """The distortion families of the second slice, which raised here
+    before, run refit from their default start as JAX's streamed core
+    does: the same E (rtol 1e-8), iterations, retries and distortion."""
     prob = _problem(nf=6, n_slices=2)
-    cfg = dataclasses.replace(lm_config_from_fields({}), **change)
-    with pytest.raises(NotImplementedError, match=change["distortion_model"]):
-        tbs.bundle_adjust_streamed(*prob, axis=AXIS, config=cfg, device="cpu")
+    fields = dict(scale_factor=2.0, delta_tol=0.0, max_iter=2, **change)
+    want = jbs.bundle_adjust_streamed(*prob, axis=AXIS, config=JLMConfig(**fields),
+                                      chunk_size=16)
+    got = tbs.bundle_adjust_streamed(*prob, axis=AXIS, config=lm_config_from_fields(fields),
+                                     chunk_size=16, device="cpu")
+    np.testing.assert_allclose(float(got.error), float(want.error), rtol=1e-8)
+    assert got.n_iter == int(want.n_iter)
+    assert got.log["n_solver_retries"] == int(want.log["n_solver_retries"])
+    w = np.asarray(want.distortion)
+    np.testing.assert_allclose(got.distortion.numpy(), w, rtol=0,
+                               atol=1e-8 * max(1.0, float(np.abs(w).max())))
 
 
 def _every_core(prob):
