@@ -85,6 +85,24 @@ Phases, each of which stops the script with a non-zero exit on failure:
    THIN_PRISM_FISHEYE (chunk 768, one refit round, covariance, the
    undistorted pinhole model), checked on its record and on the pinhole
    model it writes;
+4u. sparse: ``bundle_adjust_sparse`` (the observation-list core, plain
+   PyTorch, no hand-written kernel) on ``bench.py::bench_bal_large``'s
+   problem rebuilt on the card: 1M points x 1,600 cameras x 10M
+   observations (0.625 % fill), 2 % outliers, Huber 0.02, 12 Nielsen
+   iterations, ``cg_tol=1e-2``, ``cg_max_iter=40``, twice: both runs equal
+   to the digit, inlier E/floor < 1.5, aligned RMSE < 0.05, the peak device
+   memory below the 12.8 GB of the dense (P, F, 2) observations, with
+   CUDA-event spans of the build, each CG matvec and the trial error;
+4v. the same problem for 3 iterations stored, with ``factor_mode=
+   "recompute"`` (E within 1e-4 of stored) and with bfloat16 factors (E
+   below the start), each with its peak;
+4w. ``bal --sparse`` in process on BAL files of 4m's problem (held: two
+   tied refit rounds from the file's points; ``--triangulate-init`` on the
+   scene rendered without distortion or outliers; reported: the triangulated
+   start with one refit round on the distorted problem, F12), then
+   ``resumable_bundle_adjust_sparse`` in 3-iteration segments against one
+   continuous run in float64, and a run stopped and re-invoked from its
+   checkpoint; phases 4u-4w launch neither kernel;
 4e. ``euclidean_reconstruction_large`` on phase 4's scene with the camera
    bootstrap (12 iterations on a 10 % subsample, DLT re-triangulation),
    whose K2 launches are the final BA's retries x chunks plus a positive
@@ -111,14 +129,16 @@ Phases, each of which stops the script with a non-zero exit on failure:
    the floor, the robust dense and chunked cores on the small scene with
    gross outliers, ``ba_covariance`` in float64 (to 1e-8), and the six
    distortion families (one refit round, one iteration a segment) through
-   the dense, chunked (fused and non-fused) and streamed cores;
+   the dense, chunked (fused and non-fused) and streamed cores, and the
+   sparse core (stored, recompute, fisheye) card against CPU, and against
+   the dense core in float64 on the card;
 6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r and 4e (``--ba-iters`` sets
 the BA iterations of 4 and 4e), ``--streamed-points`` phases 4b, 4l, 4j, 4p
 and 4s, ``--dense-points`` phases 4c, 4d and 4k's second run,
-``--bal-points`` phases 4m, 4q and 4t and
+``--bal-points`` phases 4m, 4q, 4t and 4w, ``--sparse-points`` 4u and 4v, and
 ``--batched-scenes`` phases 4f-4h for a quick run; the views and the
 chunks stay the main paths', so the kernel checks keep their shapes.
 """
@@ -1161,24 +1181,17 @@ def model_error(torch, tba, truth, d_fit, d_true, chunk: int = 16384, model=None
     return math.sqrt(num / den)
 
 
-def distorted_dense(torch, fs, sy, bal_points: int, model: str = "radial",
-                    truth_k=RADIAL_TRUTH, rounds: int = 2, name: str = "distorted_dense",
-                    sigma: float = 0.05, robust: bool = True, hold_model: bool = True) -> dict:
-    """Phase 4m: ``scripts/bench_bal.py``'s distorted problem through the
-    dense ``bundle_adjust``: 20k points x 100 views, each point seen by 20
-    consecutive views, a shared radial (k1, k2) = (-0.3, 0.05), 2 % of the
-    visible observations moved by 0.5 N(0, 1), X and t perturbed by
-    0.05 N(0, 1), Huber, two shared refit rounds from zero. Phase 4q runs
-    the same problem through each family of ``FAMILY_TRUTHS`` with
-    ``rounds=1`` from ``default_distortion`` and X and t perturbed by
-    ``FAMILY_SIGMA`` (``sigma``); full OPENCV also without the outliers and
-    the loss (``robust=False``), where its model is held, since under Huber
-    it is reported only (``hold_model=False``, ``FAMILY_SIGMA``'s comment).
-    Returns the record."""
-    from mvrecon_tpu_torch.config import LMConfig
+def bal_problem(torch, bal_points: int, model: str = "radial", truth_k=RADIAL_TRUTH,
+                robust: bool = True, name: str = "distorted_dense"):
+    """4m's problem on the card (``scripts/bench_bal.py``'s): the curved tube
+    in ``DENSE_VIEWS`` views from generator seed 30, rendered through the
+    shared ``truth_k`` of ``model`` with sigma noise, each point seen by
+    ``BAL_WINDOW`` consecutive views, ``BAL_OUTLIER_SHARE`` of the visible
+    observations moved by 0.5 N(0, 1) when ``robust``. Returns (scene,
+    true state, the (F, k) model, x (P, F, 2), vis, inlier mask, outliers,
+    s_max, monotone margin)."""
     from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
     from mvrecon_tpu_torch.models import bundle_adjustment as tba
-    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
 
     gen = torch.Generator(device="cuda").manual_seed(30)
     scene = make_synthetic_scene(gen, n_images=DENSE_VIEWS, n_slices=bal_points // 20,
@@ -1201,6 +1214,30 @@ def distorted_dense(torch, fs, sy, bal_points: int, model: str = "radial",
                                                            device="cuda")
     inlier = vis.clone()
     inlier.view(-1)[pick] = False
+    return scene, truth, dist, x, vis, inlier, n_out, s_max, margin
+
+
+def distorted_dense(torch, fs, sy, bal_points: int, model: str = "radial",
+                    truth_k=RADIAL_TRUTH, rounds: int = 2, name: str = "distorted_dense",
+                    sigma: float = 0.05, robust: bool = True, hold_model: bool = True) -> dict:
+    """Phase 4m: ``scripts/bench_bal.py``'s distorted problem through the
+    dense ``bundle_adjust``: 20k points x 100 views, each point seen by 20
+    consecutive views, a shared radial (k1, k2) = (-0.3, 0.05), 2 % of the
+    visible observations moved by 0.5 N(0, 1), X and t perturbed by
+    0.05 N(0, 1), Huber, two shared refit rounds from zero. Phase 4q runs
+    the same problem through each family of ``FAMILY_TRUTHS`` with
+    ``rounds=1`` from ``default_distortion`` and X and t perturbed by
+    ``FAMILY_SIGMA`` (``sigma``); full OPENCV also without the outliers and
+    the loss (``robust=False``), where its model is held, since under Huber
+    it is reported only (``hold_model=False``, ``FAMILY_SIGMA``'s comment).
+    Returns the record."""
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
+
+    scene, truth, dist, x, vis, inlier, n_out, s_max, margin = bal_problem(
+        torch, bal_points, model, truth_k, robust, name)
+    npts, nf = scene.X.shape[0], DENSE_VIEWS
     start = perturbed_cameras(scene, seed=30, sigma=sigma)
     cfg = LMConfig(scale_factor=4.0, delta_tol=1e-4, max_iter=30, accept_divisor=1.0,
                    init_damping=3e-3, damping="nielsen", robust="huber" if robust else None,
@@ -1635,6 +1672,469 @@ def distortion_gpu_vs_cpu(torch, fs, sy) -> None:
                   f"{(k2, k1)}")
 
 
+SPARSE_CAMS = 1600  # bench.py::bench_bal_large: 1M points x 1,600 cameras ...
+SPARSE_WINDOW = 10  # ... each point seen by 10 consecutive cameras: 10M observations
+SPARSE_OUTLIER_SHARE = 0.02  # 2 % of the observations moved by 0.5 N(0, 1)
+SPARSE_START_SIGMA = 0.05  # X and t perturbed by 0.05 N(0, 1)
+SPARSE_CG_MAX = 40
+SPARSE_LEVER_ITERS = 3  # 4v: iterations of the stored, recompute and bfloat16 runs
+SPARSE_RECOMPUTE_RTOL = 1e-4  # 4v: recompute against stored E (the same operator)
+
+
+def sparse_config(max_iter: int = 12):
+    """4u's LM configuration (``bench.py::bench_bal_large``'s, 12
+    iterations)."""
+    from mvrecon_tpu_torch.config import LMConfig
+
+    return LMConfig(scale_factor=4.0, delta_tol=1e-4, max_iter=max_iter, accept_divisor=1.0,
+                    init_damping=3e-3, damping="nielsen", robust="huber",
+                    huber_delta=HUBER_DELTA)
+
+
+def sparse_problem(torch, n_points: int, seed: int = 0):
+    """``scripts/bench_sparse_capacity.py::generate`` on the card from a
+    ``torch.Generator``: ``SPARSE_CAMS`` hemisphere cameras at radius 5
+    looking at 0.5 N(0, 1) targets, f = 1, the curved tube (n_points // 20
+    slices x 20 angles), each point seen by ``SPARSE_WINDOW`` consecutive
+    cameras from a random start, sigma noise, 2 % of the observations moved
+    by 0.5 N(0, 1), X and t perturbed by 0.05 N(0, 1). Returns (obs, X_gt,
+    X0, K, R, t0, inlier mask)."""
+    from mvrecon_tpu_torch.geometry.camera import intrinsics, look_at
+    from mvrecon_tpu_torch.geometry.scenes import curved_tube_points, sample_hemisphere_points
+    from mvrecon_tpu_torch.models.bundle_adjustment_sparse import SparseObs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    nf, win = SPARSE_CAMS, SPARSE_WINDOW
+    pos = sample_hemisphere_points(gen, nf, 5.0)
+    R, t = look_at(pos, 0.5 * torch.randn(nf, 3, generator=gen, device="cuda"))
+    K = intrinsics(torch.ones(nf, device="cuda"), 1.0)
+    X = curved_tube_points(n_points // 20, 20, device="cuda")
+    npts = X.shape[0]
+    lo = torch.randint(0, nf - win + 1, (npts,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    pi = torch.arange(npts, device="cuda", dtype=torch.int32).repeat_interleave(win)
+    ci = (lo[:, None] + torch.arange(win, device="cuda", dtype=torch.int32)).reshape(-1)
+    xy = sparse_project(torch, X, K, R, t, pi, ci)
+    n_obs = pi.shape[0]
+    xy += NOISE * torch.randn((2, n_obs), generator=gen, device="cuda")
+    outlier = torch.rand(n_obs, generator=gen, device="cuda") < SPARSE_OUTLIER_SHARE
+    xy += torch.where(outlier, 0.5 * torch.randn((2, n_obs), generator=gen, device="cuda"), 0.0)
+    obs = SparseObs(pi, ci, xy, torch.ones(n_obs, device="cuda"))
+    X0 = X + SPARSE_START_SIGMA * torch.randn(X.shape, generator=gen, device="cuda")
+    t0 = t + SPARSE_START_SIGMA * torch.randn(t.shape, generator=gen, device="cuda")
+    return obs, X, X0, K, R, t0, ~outlier
+
+
+def sparse_project(torch, X, K, R, t, pi, ci, chunk: int = 1 << 22):
+    """(2, N) projections of the points ``pi`` through the cameras ``ci``."""
+    from mvrecon_tpu_torch.geometry.camera import camera_matrix
+
+    pm = camera_matrix(K, R, t).reshape(-1, 12).T.contiguous()
+    Xt = X.T.contiguous()
+    out = torch.empty((2, pi.shape[0]), dtype=X.dtype, device=X.device)
+    for s in range(0, pi.shape[0], chunk):
+        g = pm.index_select(1, ci[s:s + chunk]).view(3, 4, -1)
+        pqr = (g[:, :3] * Xt.index_select(1, pi[s:s + chunk])[None]).sum(1) + g[:, 3]
+        out[:, s:s + chunk] = pqr[:2] / pqr[2]
+    return out
+
+
+def sparse_inlier_error(torch, res, obs, inlier) -> tuple[float, int]:
+    """E over the untouched observations at the result's state."""
+    xy = sparse_project(torch, res.X, res.K, res.R, res.t, obs.point_idx, obs.cam_idx)
+    e = (((xy - obs.xy) ** 2).sum(0) * inlier).sum()
+    return float(e), int(inlier.sum())
+
+
+def sparse_run(torch, fs, sy, obs, start, config, **kw):
+    """One ``bundle_adjust_sparse`` run on the card from the (X0, K, R, t0)
+    ``start``: (result, wall s ending in a sync, peak bytes, (K2, K1)
+    launches, spans)."""
+    from mvrecon_tpu_torch.models.bundle_adjustment_sparse import bundle_adjust_sparse
+    from mvrecon_tpu_torch.runtime.profiling import EventTimer
+
+    timer = EventTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(fs, sy)
+    t0 = time.perf_counter()
+    res = bundle_adjust_sparse(obs, *start, axis="x-up_z-forward", config=config,
+                               timer=timer, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, wall, torch.cuda.max_memory_allocated(), launch_counts(fs, sy),
+            timer.ms())
+
+
+def span_summary(spans: dict) -> dict:
+    return {k: {"count": len(v), "total_ms": sum(v), "median_ms": statistics.median(v)}
+            for k, v in spans.items()}
+
+
+def sparse_full_width(torch, fs, sy, n_points: int):
+    """Phase 4u: ``bench_bal_large``'s problem (``sparse_problem``) through
+    ``bundle_adjust_sparse`` at full width, stored float32 factors, Huber
+    0.02, 12 Nielsen iterations, ``cg_tol=1e-2``, ``cg_max_iter=40``, twice:
+    the second run must repeat E, iterations, retries and CG iterations
+    exactly; the inlier E/floor below 1.5, the aligned RMSE below 0.05,
+    the peak device memory below the 12.8 GB that the dense (P, F, 2)
+    observations would take, and no K1 or K2 launch. Returns (problem,
+    record)."""
+    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
+
+    t_gen = time.perf_counter()
+    obs, X_gt, X0, K, R, t0, inlier = sparse_problem(torch, n_points)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t_gen
+    npts, n_obs = X_gt.shape[0], obs.n_obs
+    dense_bytes = npts * SPARSE_CAMS * 2 * 4
+    cfg = sparse_config()
+    kw = dict(cg_tol=1e-2, cg_max_iter=SPARSE_CG_MAX)
+    runs = [sparse_run(torch, fs, sy, obs, (X0, K, R, t0), cfg, **kw) for _ in range(2)]
+    res, wall, peak, launches, spans = runs[0]
+    e_in, n_in = sparse_inlier_error(torch, res, obs, inlier)
+    keys = [(float(r.error), r.n_iter, r.log["n_solver_retries"], r.log["cg_iters_total"])
+            for r, *_ in runs]
+    rec = {
+        "points": npts, "cams": SPARSE_CAMS, "observations": n_obs,
+        "fill": n_obs / (npts * SPARSE_CAMS), "generate_s": gen_s,
+        "wall_s": [r[1] for r in runs], "n_iter": res.n_iter,
+        "retries": res.log["n_solver_retries"], "cg_iters_total": res.log["cg_iters_total"],
+        "converged": res.log["converged"], "weighted_E": float(res.error),
+        "inlier_E": e_in, "inlier_E_vs_noise_floor": e_in / (n_in * 2 * NOISE**2),
+        "aligned_rmse_vs_gt": float(aligned_rmse(res.X, X_gt)),
+        "aligned_rmse_tpu_reference": 0.02677,
+        "max_memory_allocated_gb": peak / 1e9, "dense_observations_gb": dense_bytes / 1e9,
+        "repeats_exactly": keys[0] == keys[1], "second_run": keys[1],
+        "spans": span_summary(spans), "spans_second_run": span_summary(runs[1][4]),
+        "syrk_acc_launches": [r[3][0] for r in runs],
+        "syrk_lower_launches": [r[3][1] for r in runs],
+        "finite": math.isfinite(float(res.error)) and finite(torch, res.X, res.K, res.R, res.t),
+    }
+    if n_points < 1_000_000:
+        print(f"sparse BA cut to {npts} points x {SPARSE_CAMS} cameras by arguments")
+    print("sparse_full_width " + json.dumps(rec), flush=True)
+    check(rec["finite"], "sparse BA: an output is not finite")
+    check(rec["repeats_exactly"], f"sparse BA does not repeat: {keys}")
+    check(all(r[3] == (0, 0) for r in runs), "sparse BA launched a SYRK kernel")
+    check(rec["inlier_E_vs_noise_floor"] < 1.5,
+          f"sparse BA inlier E / floor {rec['inlier_E_vs_noise_floor']:.4f}")
+    check(rec["aligned_rmse_vs_gt"] < 0.05,
+          f"sparse BA aligned RMSE {rec['aligned_rmse_vs_gt']:.5f}")
+    if n_points >= 1_000_000:
+        check(peak < dense_bytes, f"sparse BA peak {peak / 1e9:.2f} GB is not below the dense "
+              f"observations' {dense_bytes / 1e9:.2f} GB")
+    return (obs, X_gt, X0, K, R, t0, inlier), rec
+
+
+def sparse_levers(torch, fs, sy, prob) -> dict:
+    """Phase 4v: 4u's problem for ``SPARSE_LEVER_ITERS`` iterations with
+    stored float32 factors, with ``factor_mode="recompute"`` (``matvec_chunk``
+    2^20), whose E must agree with the stored run's within
+    ``SPARSE_RECOMPUTE_RTOL``, and with ``factor_dtype="bfloat16"``, whose E
+    must be finite and below the start E; each run's peak device memory,
+    and no K1 or K2 launch."""
+    obs, _, X0, K, R, t0, _ = prob
+    cfg = dataclasses.replace(sparse_config(SPARSE_LEVER_ITERS), record_log=True)
+    kw = dict(cg_tol=1e-2, cg_max_iter=SPARSE_CG_MAX)
+    recs = {}
+    for name, extra in (("stored", {}),
+                        ("recompute", dict(factor_mode="recompute", matvec_chunk=1 << 20)),
+                        ("bfloat16", dict(factor_dtype="bfloat16"))):
+        res, wall, peak, launches, spans = sparse_run(torch, fs, sy, obs, (X0, K, R, t0), cfg,
+                                                      **kw, **extra)
+        recs[name] = {
+            "wall_s": wall, "n_iter": res.n_iter, "retries": res.log["n_solver_retries"],
+            "cg_iters_total": res.log["cg_iters_total"], "weighted_E": float(res.error),
+            "start_E": float(res.log["reprojection_error"][0]),
+            "max_memory_allocated_gb": peak / 1e9, "spans": span_summary(spans),
+            "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+        }
+    e_s, e_r = recs["stored"]["weighted_E"], recs["recompute"]["weighted_E"]
+    recs["recompute_E_rel_diff"] = abs(e_r - e_s) / e_s
+    recs["recompute_rtol"] = SPARSE_RECOMPUTE_RTOL
+    print("sparse_levers " + json.dumps(recs), flush=True)
+    for name in ("stored", "recompute", "bfloat16"):
+        check((recs[name]["syrk_acc_launches"], recs[name]["syrk_lower_launches"]) == (0, 0),
+              f"sparse {name} launched a SYRK kernel")
+    check(recs["recompute_E_rel_diff"] < SPARSE_RECOMPUTE_RTOL,
+          f"sparse recompute E differs from stored by {recs['recompute_E_rel_diff']:.3e}")
+    b = recs["bfloat16"]
+    check(math.isfinite(b["weighted_E"]) and b["weighted_E"] < b["start_E"],
+          f"sparse bfloat16 E {b['weighted_E']:.6g} against its start {b['start_E']:.6g}")
+    return recs
+
+
+SPARSE_SEGMENT_ITERS = 3  # 4w: the resumable driver's segments ...
+SPARSE_RESUME_ITERS = 12  # ... against one continuous run of 12 iterations
+# 4w: segmented against continuous, in float64 from rotations made
+# orthonormal in float64. Each segment boundary restores the gauge and
+# normalizes it again, the identity only where camera 0's rotation is
+# orthonormal in the working dtype: float32 rotations taken into float64
+# are so only to 1e-8, and the segments then parted by E 7.0e-9, X 1.2e-4
+# and c 2.0e-3 of its value (CPU rehearsal, 4k points, cg_tol 1e-10; in
+# float32, where an ulp at each boundary grows along the trajectory, E
+# 1.4e-6, X 9.6e-3, c 0.88 at 20k points). From float64-orthonormal ones,
+# at 4k points and cg_tol 1e-2: E 2.7e-13, X 2.3e-11, c 1.3e-9; the
+# limits are about a thousand times that
+SPARSE_RESUME_E_RTOL = 1e-10
+SPARSE_RESUME_X_ATOL = 1e-8
+SPARSE_RESUME_C_RTOL = 1e-6
+# phase 5: the sparse core, card against CPU, float32, E after each of two
+# iterations. The CPU against itself at other chunk sizes (other summation
+# orders) parts by up to 8e-5 at the default cg_tol 1e-2, where CG stops
+# early and a changed count changes the step, and by up to 3.4e-6 at
+# cg_tol 1e-6, which phase 5 uses: a sixth of the earlier phases' limit.
+# The fisheye case parts by 5.1e-5 there and takes its family's limit in
+# ``DISTORTION_RTOLS`` (scripts/distortion_float32_noise.py)
+SPARSE_GPU_CPU_CG_TOL = 1e-6
+SPARSE_GPU_CPU_RTOL = EARLY_ITER_RTOL
+SPARSE_DENSE_RTOL = 1e-8  # phase 5: sparse against dense in float64 at cg_tol 1e-10
+
+
+def bal_sparse_in_process(torch, fs, sy, bal_points: int, argv: list, truth_k=RADIAL_TRUTH,
+                          robust: bool = True) -> dict:
+    """One ``bal --sparse`` run in process on the card, on a BAL file that
+    ``save_bal_sparse`` writes from 4m's scene (rendered through the shared
+    radial ``truth_k``, with 4m's outliers when ``robust``; the file's
+    points are 4m's 0.05-perturbed start, its distortion zero), with the
+    extra flags ``argv`` and ``--output-ply``/``--output-bal``. The BAL file
+    has no principal point, so the inlier E/floor is taken at the state the
+    command computed (its ``bundle_adjust_sparse`` result) and the outputs
+    are read back for their counts. Returns the record."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from mvrecon_tpu_torch.__main__ import main as cli_main
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.models import bundle_adjustment_sparse as tbs
+    from mvrecon_tpu_torch.runtime import io as tio
+
+    scene, _, _, x, vis, inlier, n_out, _, _ = bal_problem(torch, bal_points, truth_k=truth_k,
+                                                           robust=robust, name="bal_sparse")
+    npts, nf = scene.X.shape[0], DENSE_VIEWS
+    X0, K, R, t0 = perturbed_cameras(scene, seed=30, sigma=SPARSE_START_SIGMA)
+    pi, ci = vis.nonzero(as_tuple=True)  # row-major: sorted by point
+    n_obs = pi.shape[0]
+    rec = {"points": npts, "views": nf, "observations": n_obs, "outliers": n_out,
+           "truth_k": list(truth_k), "argv": argv}
+    results = []
+    run = tbs.bundle_adjust_sparse
+
+    def keep_result(*a, **kw):
+        results.append(run(*a, **kw))
+        return results[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path, ply, out_bal = (os.path.join(tmp, n) for n in ("in.bal", "out.ply", "out.bal"))
+        t_w = time.perf_counter()
+        tio.save_bal_sparse(path, pi.cpu().numpy(), ci.cpu().numpy(), x[pi, ci].cpu().numpy(),
+                            npts, X0, R, t0, K[:, 0, 0], distortion=np.zeros((nf, 2)))
+        rec["write_s"] = time.perf_counter() - t_w
+        out = io.StringIO()
+        reset_launch_counts(fs, sy)
+        tbs.bundle_adjust_sparse = keep_result
+        try:
+            t_b = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(["bal", path, "--sparse"] + argv + ["--output-ply", ply,
+                                                                  "--output-bal", out_bal])
+            rec["wall_s"] = time.perf_counter() - t_b
+        finally:
+            tbs.bundle_adjust_sparse = run
+        rec["rc"], rec["launches"] = rc, launch_counts(fs, sy)
+        rec["record"] = json.loads(out.getvalue().strip().splitlines()[-1])
+        d = tio.load_bal_sparse(out_bal)
+        with open(ply, "rb") as fh:
+            head = fh.read(4096).decode("ascii", "replace")
+    vertex = [ln for ln in head.splitlines() if ln.startswith("element vertex")]
+    rec["ply_vertices"] = int(vertex[0].split()[-1]) if vertex else -1
+    rec["bal_read_back"] = (int(d["n_points"]), int(d["n_cameras"]), int(d["point_idx"].size))
+    e_in, n_in = distorted_inlier_error(torch, tba, results[-1], x, inlier, 4096)
+    rec["inlier_E_vs_noise_floor"] = e_in / (n_in * 2 * NOISE**2)
+    log = results[-1].log
+    rec["last_segment"] = {"retries": log["n_solver_retries"], "converged": log["converged"],
+                           "retries_total": log["n_solver_retries_total"]}
+    r = rec["record"]
+    check(rc == 0 and r["sparse"] and r["observations"] == n_obs
+          and (r["cams"], r["points"]) == (nf, npts)
+          and r.get("triangulate_init", False) == ("--triangulate-init" in argv),
+          f"bal --sparse record {r}")
+    check(r["device"] == torch.cuda.get_device_name(0), f"bal --sparse ran on {r['device']}")
+    check(rec["ply_vertices"] == npts + nf and rec["bal_read_back"] == (npts, nf, n_obs),
+          f"bal --sparse outputs: {rec['ply_vertices']} vertices, {rec['bal_read_back']}")
+    check(rec["launches"] == (0, 0), "bal --sparse launched a SYRK kernel")
+    return rec
+
+
+def sparse_entry_points(torch, fs, sy, bal_points: int) -> dict:
+    """Phase 4w: the sparse entry points on 4m's problem (20k points x 100
+    views, 400k observations) as an observation list
+    (``bal_sparse_in_process``). ``bal --sparse --huber 0.02
+    --optimize-distortion 2 --shared-k`` on 4m's problem (the radial truth,
+    2 % outliers, two tied refit rounds from zero, as 4m) and ``bal --sparse
+    --triangulate-init --huber 0.02`` on its scene rendered without
+    distortion or outliers: inlier E/floor below 1.5 each. ``bal --sparse
+    --triangulate-init --huber 0.02 --optimize-distortion 1`` on 4m's
+    problem is run and reported, not held: a DLT start that ignores the
+    k1 = -0.3 model and 2 % gross outliers, and one per-camera refit from
+    zero, leave the LM far from the floor, in the JAX package too (F12).
+    Then ``resumable_bundle_adjust_sparse`` (4u's configuration, the true
+    model fixed, float64, the start's rotations made orthonormal in
+    float64) in 3-iteration segments against one continuous run of 12
+    iterations: the same iterations, and E, X and c within
+    ``SPARSE_RESUME_*``; a run stopped after one segment and re-invoked
+    from its checkpoint equals the segmented run exactly. No K1 or K2
+    launch."""
+    import os
+    import tempfile
+
+    from mvrecon_tpu_torch.models.bundle_adjustment_sparse import SparseObs, bundle_adjust_sparse
+    from mvrecon_tpu_torch.runtime.elastic import resumable_bundle_adjust_sparse
+
+    hub = ["--huber", str(HUBER_DELTA)]
+    rec = {
+        "bal_distorted": bal_sparse_in_process(
+            torch, fs, sy, bal_points, hub + ["--optimize-distortion", "2", "--shared-k"]),
+        "bal_triangulated": bal_sparse_in_process(
+            torch, fs, sy, bal_points, ["--triangulate-init"] + hub, truth_k=(0.0, 0.0),
+            robust=False),
+        "bal_triangulated_distorted_reported": bal_sparse_in_process(
+            torch, fs, sy, bal_points,
+            ["--triangulate-init"] + hub + ["--optimize-distortion", "1"]),
+    }
+    scene, _, dist, x, vis, _, _, _, _ = bal_problem(torch, bal_points, name="bal_sparse")
+    X0, K, R, t0 = (a.astype(np.float64) for a in perturbed_cameras(
+        scene, seed=30, sigma=SPARSE_START_SIGMA))
+    u, _, vt = np.linalg.svd(R)
+    R = u @ vt  # orthonormal in float64 (the gauge round trip needs it)
+    pi, ci = vis.nonzero(as_tuple=True)
+    n_obs = pi.shape[0]
+    xy = x[pi, ci]
+
+    # the resumable driver against one continuous run, float64
+    obs = SparseObs(pi.int(), ci.int(), xy.T.double().contiguous(),
+                    torch.ones(n_obs, dtype=torch.float64, device="cuda"))
+    cfg = sparse_config(SPARSE_RESUME_ITERS)
+    kw = dict(axis="x-up_z-forward", cg_tol=1e-2, cg_max_iter=SPARSE_CG_MAX, distortion=dist)
+    reset_launch_counts(fs, sy)
+    t_c = time.perf_counter()
+    cont = bundle_adjust_sparse(obs, X0, K, R, t0, config=cfg, **kw)
+    rec["continuous_wall_s"] = time.perf_counter() - t_c
+    with tempfile.TemporaryDirectory() as tmp:
+        seg, ran = resumable_bundle_adjust_sparse(
+            obs, X0, K, R, t0, os.path.join(tmp, "a.npz"), total_iters=SPARSE_RESUME_ITERS,
+            segment_iters=SPARSE_SEGMENT_ITERS, config=cfg, **kw)
+        ck = os.path.join(tmp, "b.npz")
+        _, first = resumable_bundle_adjust_sparse(
+            obs, X0, K, R, t0, ck, total_iters=SPARSE_SEGMENT_ITERS,
+            segment_iters=SPARSE_SEGMENT_ITERS, config=cfg, **kw)
+        resumed, rest = resumable_bundle_adjust_sparse(
+            obs, X0, K, R, t0, ck, total_iters=SPARSE_RESUME_ITERS,
+            segment_iters=SPARSE_SEGMENT_ITERS, config=cfg, **kw)
+    rec["resume_launches"] = launch_counts(fs, sy)
+    e_c, e_s = float(cont.error), float(seg.error)
+    rec.update(
+        continuous_n_iter=cont.n_iter, segmented_n_iter=ran, killed_at=first,
+        resumed_n_iter=rest, continuous_E=e_c, segmented_E=e_s,
+        E_rel_diff=abs(e_s - e_c) / e_c,
+        X_max_abs_diff=float((seg.X - cont.X).abs().max()),
+        c_rel_diff=abs(float(seg.log["c"]) - float(cont.log["c"])) / float(cont.log["c"]),
+        resumed_equals_segmented=bool(torch.equal(resumed.X, seg.X)
+                                      and float(resumed.error) == e_s),
+        limits={"E_rtol": SPARSE_RESUME_E_RTOL, "X_atol": SPARSE_RESUME_X_ATOL,
+                "c_rtol": SPARSE_RESUME_C_RTOL})
+    print("sparse_entry_points " + json.dumps(rec), flush=True)
+    for name in ("bal_distorted", "bal_triangulated"):
+        check(rec[name]["inlier_E_vs_noise_floor"] < 1.5,
+              f"{name}: inlier E / floor {rec[name]['inlier_E_vs_noise_floor']:.4f}")
+    check(rec["resume_launches"] == (0, 0), "the resumable runs launched a SYRK kernel")
+    check(ran == cont.n_iter and first + rest == ran,
+          f"resumable iterations {first} + {rest}, {ran} against {cont.n_iter}")
+    check(rec["E_rel_diff"] < SPARSE_RESUME_E_RTOL and rec["X_max_abs_diff"] < SPARSE_RESUME_X_ATOL
+          and rec["c_rel_diff"] < SPARSE_RESUME_C_RTOL,
+          f"segmented against continuous: E {rec['E_rel_diff']:.3e}, X "
+          f"{rec['X_max_abs_diff']:.3e}, c {rec['c_rel_diff']:.3e}")
+    check(rec["resumed_equals_segmented"], "the re-invoked run differs from the segmented one")
+    return rec
+
+
+def sparse_gpu_vs_cpu(torch, fs, sy, small) -> dict:
+    """Phase 5, sparse: phase 5's small scene (12 views x 400 points) at
+    60 % random visibility as an observation list, X and t perturbed by
+    0.02 N(0, 1). ``bundle_adjust_sparse`` for two iterations on the card
+    and on the CPU, float32, ``cg_tol=1e-6``: stored, recompute (chunks of
+    512) and the fisheye truth, fixed, on observations rendered through it;
+    E after each iteration within ``SPARSE_GPU_CPU_RTOL``,
+    the same iterations and retries. Then the sparse core against the
+    port's dense core on the card in float64 at ``cg_tol=1e-10``, 4
+    iterations: E within ``SPARSE_DENSE_RTOL``, the same iterations. No K1
+    or K2 launch on the card."""
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.models.bundle_adjustment_sparse import (
+        bundle_adjust_sparse,
+        dense_to_sparse_obs,
+    )
+
+    x_host, X0, K, R, t0 = perturbed_start(small, seed=5)
+    vis = (np.random.default_rng(5).random(x_host.shape[:2]) < 0.6).astype(np.float32)
+    nf = K.shape[0]
+    fish = np.asarray(FAMILY_TRUTHS["fisheye"], np.float32)[None].repeat(nf, 0)
+    x_fish = tba.distort_points(torch.as_tensor(x_host), torch.as_tensor(K[:, 0, 0]),
+                                distortion=torch.as_tensor(fish),
+                                distortion_model="fisheye").numpy()
+    two = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=2, record_log=True)
+    cases = {"stored": (x_host, {}, two),
+             "recompute": (x_host, dict(factor_mode="recompute", obs_chunk=512), two),
+             "fisheye": (x_fish, dict(distortion=fish),
+                         dataclasses.replace(two, distortion_model="fisheye"))}
+    reset_launch_counts(fs, sy)
+    recs = {}
+    for name, (x_in, kw, cfg) in cases.items():
+        runs = {dev: bundle_adjust_sparse(dense_to_sparse_obs(x_in, vis, device=dev), X0, K, R,
+                                          t0, axis="x-up_z-forward", config=cfg, device=dev,
+                                          cg_tol=SPARSE_GPU_CPU_CG_TOL, cg_max_iter=200, **kw)
+                for dev in ("cuda", "cpu")}
+        e_g, e_c = (runs[d].log["reprojection_error"].cpu()[1:3] for d in ("cuda", "cpu"))
+        recs[name] = {
+            "E_gpu": e_g.tolist(), "E_cpu": e_c.tolist(),
+            "E_rel_diff_iters_1_2": ((e_g - e_c).abs() / e_c).tolist(),
+            "n_iter": [runs[d].n_iter for d in ("cuda", "cpu")],
+            "retries": [runs[d].log["n_solver_retries"] for d in ("cuda", "cpu")],
+            "cg_iters": [runs[d].log["cg_iters_total"] for d in ("cuda", "cpu")],
+            "rtol": DISTORTION_RTOLS["fisheye"] if name == "fisheye" else SPARSE_GPU_CPU_RTOL,
+        }
+    x64 = torch.as_tensor(x_host, dtype=torch.float64, device="cuda")
+    four = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=4, accept_divisor=1.0,
+                    init_damping=3e-3, damping="nielsen")
+    d = tba.bundle_adjust(x64, X0, K, R, t0, visibility=vis, axis="x-up_z-forward",
+                          config=four)
+    s = bundle_adjust_sparse(dense_to_sparse_obs(x_host.astype(np.float64), vis, device="cuda"),
+                             X0, K, R, t0, axis="x-up_z-forward", config=four, cg_tol=1e-10,
+                             cg_max_iter=500)
+    recs["sparse_vs_dense_float64"] = {
+        "E_sparse": float(s.error), "E_dense": float(d.error),
+        "E_rel_diff": abs(float(s.error) - float(d.error)) / float(d.error),
+        "n_iter": [s.n_iter, d.n_iter], "rtol": SPARSE_DENSE_RTOL}
+    recs["launches_gpu"] = launch_counts(fs, sy)
+    print("sparse_gpu_vs_cpu " + json.dumps(recs), flush=True)
+    for name in cases:
+        r = recs[name]
+        check(r["n_iter"][0] == r["n_iter"][1] and r["retries"][0] == r["retries"][1],
+              f"sparse {name}: iterations or retries differ, card against CPU: {r}")
+        check(max(r["E_rel_diff_iters_1_2"]) < r["rtol"],
+              f"sparse {name}: E differs by {r['E_rel_diff_iters_1_2']} card against CPU "
+              f"(limit {r['rtol']})")
+    r = recs["sparse_vs_dense_float64"]
+    check(r["E_rel_diff"] < SPARSE_DENSE_RTOL and r["n_iter"][0] == r["n_iter"][1],
+          f"sparse against dense in float64: {r}")
+    check(recs["launches_gpu"] == (0, 0), "the small sparse runs launched a SYRK kernel")
+    return recs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--points", type=int, default=100_000)
@@ -1642,6 +2142,7 @@ def main() -> int:
     parser.add_argument("--streamed-points", type=int, default=1_000_000)
     parser.add_argument("--dense-points", type=int, default=10_000)
     parser.add_argument("--bal-points", type=int, default=20_000)
+    parser.add_argument("--sparse-points", type=int, default=1_000_000)
     parser.add_argument("--batched-scenes", type=int, default=256)
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
@@ -1912,6 +2413,15 @@ def main() -> int:
                     1, "full_opencv_dense_huber", FAMILY_SIGMA, hold_model=False)
     bal_recs = bal_on_card(torch, fs, sy, args.bal_points)
 
+    # 4u. the sparse observation-list core at bench_bal_large's width: 1M
+    # points x 1,600 cameras x 10M observations; 4v. its capacity levers;
+    # 4w. its entry points (bal --sparse, the resumable driver)
+    sparse_prob, sparse_rec = sparse_full_width(torch, fs, sy, args.sparse_points)
+    levers_rec = sparse_levers(torch, fs, sy, sparse_prob)
+    del sparse_prob
+    torch.cuda.empty_cache()
+    entry_rec = sparse_entry_points(torch, fs, sy, args.bal_points)
+
     # 4e. the large pipeline with the camera bootstrap, on phase 4's scene
     _, scene = north_star_scenes(torch, make_synthetic_scene, args.points)
     n_points = scene.X.shape[0]
@@ -2062,6 +2572,17 @@ def main() -> int:
     batched_gpu_vs_cpu(torch, fs, sy, d_cfg)
     robust_gpu_vs_cpu(torch, fs, sy, small, small_cfg)
     distortion_gpu_vs_cpu(torch, fs, sy)
+    sparse_small = sparse_gpu_vs_cpu(torch, fs, sy, small)
+
+    # the sparse phases' launches of either kernel, by phase: all zero
+    def sparse_launches(i: int) -> dict:
+        return {"4u": sparse_rec[("syrk_acc_launches", "syrk_lower_launches")[i]],
+                "4v": {m: levers_rec[m][("syrk_acc_launches", "syrk_lower_launches")[i]]
+                       for m in ("stored", "recompute", "bfloat16")},
+                "4w": [entry_rec[m]["launches"][i] for m in (
+                    "bal_distorted", "bal_triangulated", "bal_triangulated_distorted_reported")]
+                + [entry_rec["resume_launches"][i]],
+                "5": sparse_small["launches_gpu"][i]}
 
     # 6. result lines
     kernels = [{
@@ -2070,6 +2591,7 @@ def main() -> int:
         "launches": launches, "launches_dense_ba": d_launches[0],
         "launches_dense_pipeline": p_launches[0], "launches_bootstrap_pipeline": b_launches,
         "launches_robust_chunked": k2_robust, "launches_distorted_chunked": k2_distorted,
+        "launches_sparse": sparse_launches(0),
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
@@ -2087,6 +2609,7 @@ def main() -> int:
                                         for m, r in family_chunked.items()},
         "launches_full_opencv_streamed": full_streamed_rec["syrk_lower_launches"],
         "launches_bal": {m: r["syrk_lower_launches"] for m, r in bal_recs.items()},
+        "launches_sparse": sparse_launches(1),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

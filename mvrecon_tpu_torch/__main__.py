@@ -7,6 +7,7 @@ file or a COLMAP model), the others build synthetic scenes:
     python -m mvrecon_tpu_torch affine --model paraperspective --n-images 12
     python -m mvrecon_tpu_torch batch --scenes 8 --n-images 10 --scene-chunk 4
     python -m mvrecon_tpu_torch bal sparse/0 --chunk-size 768 --optimize-distortion 1
+    python -m mvrecon_tpu_torch bal problem.bal --sparse --huber 0.02 --triangulate-init
 """
 
 from __future__ import annotations
@@ -111,7 +112,17 @@ def _bal_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--shard-points", type=int, default=0, metavar="N",
                    help="shard the points over N devices (not ported yet)")
     p.add_argument("--sparse", action="store_true",
-                   help="the observation-list core (not ported yet)")
+                   help="the O(n_observations) observation-list core, for BAL files at "
+                   "BAL-class sparsity; writes --output-ply and --output-bal")
+    p.add_argument("--cg-max-iter", type=int, default=100, metavar="K",
+                   help="(--sparse) CG iteration cap of the camera step")
+    p.add_argument("--bf16-factors", action="store_true",
+                   help="(--sparse) store the per-observation Jacobian factor rows in bfloat16")
+    p.add_argument("--recompute-factors", action="store_true",
+                   help="(--sparse) store no factor rows: recompute them in every pass")
+    p.add_argument("--triangulate-init", action="store_true",
+                   help="(--sparse) start from a DLT triangulation of the observations through "
+                   "the file's cameras instead of the file's points")
 
 
 def _cmd_bal(args) -> int:
@@ -129,9 +140,6 @@ def _cmd_bal(args) -> int:
     from .models.covariance import ba_covariance, ba_covariance_chunked
     from .runtime import io
 
-    if args.sparse:
-        raise NotImplementedError("bal --sparse: the sparse observation-list core is not "
-                                  "ported yet (ROADMAP queue 1, item 8)")
     if args.shard_points > 0:
         raise NotImplementedError("bal --shard-points: the sharded cores are not ported yet "
                                   "(ROADMAP queue 1, item 10)")
@@ -139,6 +147,9 @@ def _cmd_bal(args) -> int:
     dt = torch.float64 if args.float64 else torch.float32
     out: dict = {"command": "bal"}
     t_start = time.perf_counter()
+    if args.sparse:
+        _cmd_bal_sparse(args, out, dev, dt)
+        return _finish(out, dev, dt, t_start)
     if args.chunk_size > 0:
         ba_fn = functools.partial(bundle_adjust_chunked, chunk_size=args.chunk_size)
         cov_fn = functools.partial(ba_covariance_chunked, chunk_size=args.chunk_size)
@@ -240,11 +251,86 @@ def _cmd_bal(args) -> int:
     if args.output_ply:
         io.save_ply(args.output_ply, X, cameras=t, quality=pt_sig)
         out["output_ply"] = args.output_ply
+    return _finish(out, dev, dt, t_start)
+
+
+def _finish(out: dict, dev, dt, t_start: float) -> int:
+    """Add the device, dtype and wall to the record and print it."""
     out["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     out["dtype"] = str(dt).removeprefix("torch.")
     out["total_wall_s"] = round(time.perf_counter() - t_start, 2)
     print(json.dumps(out))
     return 0
+
+
+def _cmd_bal_sparse(args, out: dict, dev, dt) -> None:
+    """``bal --sparse``: the O(n_obs) path. The BAL file loads straight
+    into the observation list (no dense arrays), the sparse core optimizes
+    it (from the file's points or a DLT triangulation), and PLY and BAL are
+    written from the list; the record carries the JAX package's keys."""
+    import os
+
+    import numpy as np
+
+    from .config import LMConfig, as_tensor
+    from .models.bundle_adjustment_sparse import SparseObs, bundle_adjust_sparse
+    from .ops.triangulation import triangulate_sparse
+    from .runtime import io
+
+    if os.path.isdir(args.input):
+        raise SystemExit("--sparse reads BAL files; COLMAP models load dense "
+                         "(drop --sparse or convert with save_bal first)")
+    d = io.load_bal_sparse(args.input)
+    npts, nf = int(d["n_points"]), int(d["n_cameras"])
+    f0 = float(d["f0"])
+    cfg = LMConfig(scale_factor=args.scale_factor, delta_tol=args.delta_tol,
+                   max_iter=args.max_iter, damping=args.damping,
+                   robust=args.robust_loss if args.huber is not None else None,
+                   huber_delta=args.huber if args.huber is not None else 0.05,
+                   distortion_rounds=args.optimize_distortion,
+                   distortion_shared=args.shared_k)
+
+    def dev_t(a):
+        return as_tensor(np.ascontiguousarray(a), dev, dt)
+
+    dist = None if args.ignore_distortion else dev_t(d["distortion"])
+    K0, R0, t0 = dev_t(d["K"]), dev_t(d["R"]), dev_t(d["t"])
+    pi = torch.from_numpy(d["point_idx"].astype(np.int32)).to(dev)
+    ci = torch.from_numpy(d["cam_idx"].astype(np.int32)).to(dev)
+    xy = dev_t(d["xy"])  # (N, 2)
+    if args.triangulate_init:
+        X0 = triangulate_sparse(pi, ci, xy, npts, K0, R0, t0, f0=f0, device=dev)
+        out["triangulate_init"] = True
+    else:
+        X0 = dev_t(d["X"])
+    obs = SparseObs(pi, ci, xy.T.contiguous(), torch.ones(pi.shape[0], dtype=dt, device=dev))
+    res = bundle_adjust_sparse(
+        obs, X0, K0, R0, t0, f0=f0, axis="x-up_z-forward", config=cfg,
+        cg_max_iter=args.cg_max_iter, distortion=dist,
+        factor_dtype="bfloat16" if args.bf16_factors else None,
+        factor_mode="recompute" if args.recompute_factors else "stored", device=dev)
+    if args.bf16_factors:
+        out["factor_dtype"] = "bfloat16"
+    if args.recompute_factors:
+        out["factor_mode"] = "recompute"
+    out.update(format="bal", sparse=True, cams=nf, points=npts,
+               observations=int(d["point_idx"].shape[0]), ba_iterations=int(res.n_iter),
+               cg_iterations=int(res.log["cg_iters_total"]),
+               reprojection_error=float(res.error))
+    dmat = None if res.distortion is None else res.distortion.cpu().numpy()
+    if dmat is not None:
+        out["k1_mean"] = float(dmat[:, 0].mean())
+        out["k2_mean"] = float(dmat[:, 1].mean())
+    X, R, t = (a.detach().cpu().numpy() for a in (res.X, res.R, res.t))
+    if args.output_ply:
+        io.save_ply(args.output_ply, X, cameras=t)
+        out["output_ply"] = args.output_ply
+    if args.output_bal:
+        dist_out = dmat if dmat is not None else (None if args.ignore_distortion
+                                                  else d["distortion"])
+        io.save_bal_sparse(args.output_bal, d["point_idx"], d["cam_idx"], d["xy"], npts, X, R, t,
+                           res.K[:, 0, 0].cpu().numpy(), distortion=dist_out)
+        out["output_bal"] = args.output_bal
 
 
 def main(argv=None) -> int:

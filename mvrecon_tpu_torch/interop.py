@@ -8,16 +8,28 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .config import LMConfig, as_tensor
 from .models.bundle_adjustment import BAState
+from .models.bundle_adjustment_sparse import SparseObs
 
 
 def ba_state_from_numpy(X, f, u, t, R, device, dtype) -> BAState:
     """A ``BAState`` of tensors on ``device`` from numpy arrays."""
     dev = torch.device(device)
     return BAState(*(as_tensor(a, dev, dtype) for a in (X, f, u, t, R)))
+
+
+def sparse_obs_from_numpy(point_idx, cam_idx, xy, weights, device, dtype) -> SparseObs:
+    """The port's ``SparseObs`` on ``device`` from the numpy leaves of a JAX
+    ``SparseObs`` (``xy`` (2, N)), indices as int32, ``xy`` and ``weights``
+    in ``dtype``."""
+    dev = torch.device(device)
+    return SparseObs(*(torch.from_numpy(np.array(a, np.int32)).to(dev)
+                       for a in (point_idx, cam_idx)),
+                     as_tensor(xy, dev, dtype), as_tensor(weights, dev, dtype))
 
 
 def distortion_from_numpy(dist, like: torch.Tensor) -> torch.Tensor:

@@ -238,11 +238,17 @@ def test_bal_matches_jax_on_a_bal_file(tmp_path, capsys):
         np.testing.assert_allclose(t[k], j[k], rtol=0, atol=1e-8, err_msg=k)
 
 
-def test_bal_unported_options_raise(tmp_path):
+def test_bal_unported_options_raise(tmp_path, capsys):
     x, vis, X0, R, t0, f, _, dist = _scene("radial")
     path = str(tmp_path / "problem.bal")
     tio.save_bal(path, x, vis, X0, R, t0, f, distortion=dist)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmain(["bal", path, "--sparse", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmain(["bal", path, "--shard-points", "2", "--device", "cpu"])
+    # --sparse is ported (the observation-list core): it runs and prints its record
+    assert tmain(["bal", path, "--sparse", "--max-iter", "2", "--device", "cpu",
+                  "--float64"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["sparse"] is True and rec["observations"] == int(vis.sum())
+    assert rec["ba_iterations"] <= 2 and np.isfinite(rec["reprojection_error"])
+    # the sharded cores are not: --shard-points raises, with --sparse too
+    for extra in ([], ["--sparse"]):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tmain(["bal", path, "--shard-points", "2", "--device", "cpu"] + extra)

@@ -28,6 +28,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "scripts" / "gpu_cpu_trajectory.py",
     REPO / "scripts" / "eigh_batch_limit.py",
     REPO / "scripts" / "dense_wall.py",
+    REPO / "scripts" / "sparse_reductions.py",
 ]
 
 
@@ -165,6 +166,46 @@ def test_bal_defaults_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["bal", path])
+
+
+def test_sparse_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from mvrecon_tpu_torch.models.bundle_adjustment_sparse import (
+        bundle_adjust_sparse,
+        dense_to_sparse_obs,
+        make_sparse_obs,
+    )
+    from mvrecon_tpu_torch.ops.triangulation import triangulate_sparse
+    from mvrecon_tpu_torch.runtime.elastic import resumable_bundle_adjust_sparse
+
+    obs = make_sparse_obs(np.arange(4), np.arange(4) % 2, np.zeros((4, 2)), device="cpu")
+    start = (np.zeros((4, 3)), np.broadcast_to(np.eye(3), (2, 3, 3)),
+             np.broadcast_to(np.eye(3), (2, 3, 3)), np.zeros((2, 3)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_sparse_obs(np.arange(4), np.arange(4) % 2, np.zeros((4, 2)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dense_to_sparse_obs(np.zeros((4, 2, 2)), np.ones((4, 2)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle_adjust_sparse(obs, *start)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        triangulate_sparse(np.arange(4), np.arange(4) % 2, np.zeros((4, 2)), 4, *start[1:])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resumable_bundle_adjust_sparse(obs, *start, str(tmp_path / "c.npz"), total_iters=1)
+
+
+def test_bal_sparse_defaults_to_the_card(monkeypatch, tmp_path):
+    from mvrecon_tpu_torch.__main__ import main
+    from mvrecon_tpu_torch.runtime.io import save_bal_sparse
+
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "problem.bal")
+    save_bal_sparse(path, np.repeat(np.arange(5), 3), np.tile(np.arange(3), 5),
+                    rng.standard_normal((15, 2)), 5, rng.standard_normal((5, 3)),
+                    np.broadcast_to(np.eye(3), (3, 3, 3)), rng.standard_normal((3, 3)),
+                    np.ones(3))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["bal", path, "--sparse"])
 
 
 def test_io_imports_numpy_and_the_standard_library_only():
