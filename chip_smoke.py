@@ -103,6 +103,23 @@ Phases, each of which stops the script with a non-zero exit on failure:
    ``resumable_bundle_adjust_sparse`` in 3-iteration segments against one
    continuous run in float64, and a run stopped and re-invoked from its
    checkpoint; phases 4u-4w launch neither kernel;
+4x. ``reconstruct`` in process on an npz of the dense headline's scene
+   (10k points x 100 views, ``X_gt``), 0.1 % of the observations moved by
+   +0.1 and masked out in ``visibility``, ``--eig-method lowrank``: float32
+   with ``--output``,
+   ``--output-ply`` and ``--log-json`` (status 0, E over the visible
+   observations at the floor, the outputs read back at their shapes), then
+   ``--float64 --covariance`` (sigma within 5 %); no launch of either kernel;
+4y. ``bench-ba`` in process: ``--chunked`` at 100k points x 1000 views,
+   chunk 768, 10 iterations (K2 launches, K1 does not), the dense core at
+   10k x 100 (no launch), and that run again under ``--profile`` (a trace
+   file appears); each below its start E;
+4z. the reference-named API: ``BundleAdjuster`` at 20k points x 1000 views,
+   whose coupling blocks (2.16 GB) exceed its 1.5 GB threshold, so it runs
+   the chunked core (K2) with a scalar debug log ending at its E;
+   ``MinimumSpanningTree`` on a 1,000-node graph with tied weights on the
+   native route, equal to a plain Kruskal; the perspective shim on a list
+   of ten (200, 2) arrays, status 0;
 4e. ``euclidean_reconstruction_large`` on phase 4's scene with the camera
    bootstrap (12 iterations on a 10 % subsample, DLT re-triangulation),
    whose K2 launches are the final BA's retries x chunks plus a positive
@@ -135,10 +152,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
 6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
-``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r and 4e (``--ba-iters`` sets
-the BA iterations of 4 and 4e), ``--streamed-points`` phases 4b, 4l, 4j, 4p
-and 4s, ``--dense-points`` phases 4c, 4d and 4k's second run,
-``--bal-points`` phases 4m, 4q, 4t and 4w, ``--sparse-points`` 4u and 4v, and
+``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r, 4e and 4y's chunked run
+(``--ba-iters`` sets the BA iterations of 4 and 4e), ``--streamed-points``
+phases 4b, 4l, 4j, 4p and 4s, ``--dense-points`` phases 4c, 4d, 4k's second
+run, 4x and 4y's dense runs, ``--bal-points`` phases 4m, 4q, 4t, 4w and 4z's
+``BundleAdjuster`` (below 20k points it may take the dense core, and the
+launch check follows its choice), ``--sparse-points`` 4u and 4v, and
 ``--batched-scenes`` phases 4f-4h for a quick run; the views and the
 chunks stay the main paths', so the kernel checks keep their shapes.
 """
@@ -2135,6 +2154,261 @@ def sparse_gpu_vs_cpu(torch, fs, sy, small) -> dict:
     return recs
 
 
+RECONSTRUCT_CORRUPT = 0.001  # 4x: share of the observations moved by +0.1 and masked out
+RECONSTRUCT_SHIFT = 0.1  # ... as tests/test_f0_and_misc.py's visibility test does
+RECONSTRUCT_ITERS = 30  # 4x: the BA's iteration cap (delta_tol 1e-8, the CLI's default)
+BENCH_BA_ITERS = 10  # 4y
+ADJUSTER_ITERS = 4  # 4z: BundleAdjuster.optimize(is_debug=True), as JAX's test_compat
+MST_NODES = 1000  # 4z: the random view graph, ...
+MST_EDGES = 20000  # ... with integer weights in [0, 10), so most weights are tied
+
+
+def run_cli(torch, fs, sy, argv: list) -> tuple[dict, tuple[int, int], float]:
+    """One command of the port's command line, in process on the card: (its
+    record, the (K2, K1) launches it made, its host wall)."""
+    import contextlib
+    import io
+
+    from mvrecon_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    reset_launch_counts(fs, sy)
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - start
+    launches = launch_counts(fs, sy)
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0, f"{argv[0]}: rc {rc}")
+    check(rec["device"] == torch.cuda.get_device_name(0), f"{argv[0]} ran on {rec['device']}")
+    return rec, launches, wall
+
+
+def ply_vertices(path: str) -> int:
+    with open(path, "rb") as fh:
+        head = fh.read(4096).decode("ascii", "replace")
+    vertex = [ln for ln in head.splitlines() if ln.startswith("element vertex")]
+    return int(vertex[0].split()[-1]) if vertex else -1
+
+
+def reconstruct_on_card(torch, fs, sy, dense_points: int) -> dict:
+    """Phase 4x: ``reconstruct`` in process on an npz of the dense
+    headline's scene (10k points x 100 views, sigma = ``NOISE``, with
+    ``X_gt``), 0.1 % of its observations moved by +0.1 and masked out in
+    ``visibility``: ``--eig-method lowrank``, float32 with ``--output``,
+    ``--output-ply`` and ``--log-json``, then ``--float64 --covariance`` (the float32 dense
+    covariance at this size is F10's NaN). Holds status 0, E over the
+    visible observations / (n_visible 2 sigma^2) < 1.5, the aligned RMSE
+    reported, the outputs read back at their shapes, the log file's lines
+    equal to the records, sqrt(sigma^2)/sigma within 5 % of 1 with finite
+    point sigmas, and no launch of either kernel. Returns the records."""
+    import os
+    import tempfile
+
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.runtime import io as tio
+
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    scene = make_synthetic_scene(gen, n_images=DENSE_VIEWS, n_slices=dense_points // 20,
+                                 n_angles=20, dtype=torch.float32)
+    npts = scene.X.shape[0]
+    bad = torch.rand((npts, DENSE_VIEWS), generator=gen, device="cuda") < RECONSTRUCT_CORRUPT
+    x = scene.x.clone()
+    x[bad.T] += RECONSTRUCT_SHIFT
+    vis_host = (~bad).float().cpu().numpy()
+    n_vis = int(vis_host.sum())
+    floor = n_vis * 2 * NOISE**2
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path, out_npz, ply, log = (os.path.join(tmp, n) for n in (
+            "tracks.npz", "out.npz", "out.ply", "runs.jsonl"))
+        tio.save_observations(path, x.cpu().numpy(), visibility=vis_host,
+                              X_gt=scene.X.cpu().numpy())
+        for name, extra in (("float32", []), ("float64_covariance", ["--float64", "--covariance"])):
+            # the dual depth loop's exact eigensolve forms (F, P, P) Grams, 37 GB
+            # at this width; the primary method's start leaves BA at 1.8x the
+            # floor here (a CPU run at 2k points); so lowrank, as phase 4d
+            rec, launches, wall = run_cli(torch, fs, sy, [
+                "reconstruct", path, "--eig-method", "lowrank", "--max-iter",
+                str(RECONSTRUCT_ITERS), "--output", out_npz, "--output-ply", ply,
+                "--log-json", log] + extra)
+            d = tio.load_observations(out_npz)
+            r = {"points": npts, "views": DENSE_VIEWS, "visible": n_vis,
+                 "masked": int(bad.sum()), "wall_s": wall, "record": rec,
+                 "E_vs_noise_floor": rec["reprojection_error"] / floor,
+                 "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+                 "output_shapes": {k: list(v.shape) for k, v in d.items()},
+                 "ply_vertices": ply_vertices(ply)}
+            if "sigma" in rec:
+                r["sigma_vs_true"] = rec["sigma"] / NOISE
+            recs[name] = r
+            print(f"reconstruct_{name} " + json.dumps(r), flush=True)
+            want = {"X": [npts, 3], "K": [DENSE_VIEWS, 3, 3], "R": [DENSE_VIEWS, 3, 3],
+                    "t": [DENSE_VIEWS, 3], "x": [DENSE_VIEWS, npts, 2]}
+            if "sigma" in rec:
+                want.update(point_cov=[npts, 3, 3], camera_cov=[DENSE_VIEWS, 9, 9], sigma2=[])
+            check(rec["status"] == 0 and rec["n_visible"] == n_vis
+                  and (rec["n_points"], rec["n_views"]) == (npts, DENSE_VIEWS),
+                  f"reconstruct {name}: record {rec}")
+            check(r["E_vs_noise_floor"] < 1.5,
+                  f"reconstruct {name}: E / floor {r['E_vs_noise_floor']:.4f}")
+            check(math.isfinite(rec["aligned_rmse_gt"]),
+                  f"reconstruct {name}: aligned RMSE {rec['aligned_rmse_gt']}")
+            check(r["output_shapes"] == want and r["ply_vertices"] == npts + DENSE_VIEWS,
+                  f"reconstruct {name}: outputs {r['output_shapes']}, {r['ply_vertices']} "
+                  "vertices")
+            check(launches == (0, 0), f"reconstruct {name} launched a SYRK kernel {launches}")
+        check(abs(recs["float64_covariance"]["sigma_vs_true"] - 1.0) < 0.05
+              and math.isfinite(recs["float64_covariance"]["record"]["point_sigma_max"]),
+              f"reconstruct covariance: sigma {recs['float64_covariance']['record']['sigma']}")
+        with open(log) as fh:
+            lines = [json.loads(line) for line in fh]
+        check(lines == [r["record"] for r in recs.values()], "reconstruct --log-json lines")
+    return recs
+
+
+def bench_ba_on_card(torch, fs, sy, points: int, dense_points: int) -> dict:
+    """Phase 4y: ``bench-ba`` in process, float32. ``--chunked`` at the
+    north star's width (100k points x 1000 views, chunk 768, 10
+    iterations): the fused build, so K2 launches and K1 does not; the
+    dense core at the headline's (10k x 100, 10 iterations), launching
+    neither; then the dense run again under ``--profile``, whose trace
+    file must appear. Each ends finite and below its start E. Returns
+    the records."""
+    import os
+    import tempfile
+
+    runs = {
+        "chunked": ["--chunked", "--points", str(points), "--views", str(VIEWS),
+                    "--chunk-size", str(CHUNK)],
+        "dense": ["--points", str(dense_points), "--views", str(DENSE_VIEWS)],
+    }
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "profile")
+        runs["dense_profiled"] = runs["dense"] + ["--profile", prof]
+        for name, argv in runs.items():
+            rec, launches, wall = run_cli(torch, fs, sy,
+                                          ["bench-ba", "--iters", str(BENCH_BA_ITERS)] + argv)
+            npts = rec["points"] // 20 * 20
+            r = {"record": rec, "command_wall_s": wall, "syrk_acc_launches": launches[0],
+                 "syrk_lower_launches": launches[1],
+                 "E_vs_noise_floor": rec["reprojection_error"] / (npts * rec["views"] * 2
+                                                                  * NOISE**2)}
+            if name == "dense_profiled":
+                trace = os.path.join(prof, "trace.json")
+                r["trace_bytes"] = os.path.getsize(trace) if os.path.exists(trace) else 0
+                if r["trace_bytes"]:
+                    with open(trace) as fh:
+                        events = json.load(fh)["traceEvents"]
+                    r["trace_kernel_events"] = sum(e.get("cat") == "kernel" for e in events)
+            recs[name] = r
+            print(f"bench_ba_{name} " + json.dumps(r), flush=True)
+            err = rec["reprojection_error"]
+            check(math.isfinite(err) and err < rec["start_error"],
+                  f"bench-ba {name}: E {err} against its start {rec['start_error']}")
+            fused = name == "chunked"
+            check((launches[0] > 0) == fused and launches[1] == 0,
+                  f"bench-ba {name}: launches (K2, K1) {launches}")
+    check(recs["dense_profiled"]["trace_bytes"] > 0, "bench-ba --profile wrote no trace")
+    return recs
+
+
+def reference_api_on_card(torch, fs, sy, adjuster_points: int) -> dict:
+    """Phase 4z, the reference-named API on the card. ``BundleAdjuster`` at
+    20k points x 1000 views, float32, from X and t perturbed by 0.02: its
+    (P, F, 27) coupling blocks take 2.16 GB, above the class's 1.5 GB
+    threshold, so ``optimize(is_debug=True)`` runs the chunked core (K2)
+    for ``ADJUSTER_ITERS`` iterations; its log holds one scalar record an
+    iteration, ending at the result's E. ``MinimumSpanningTree`` on a
+    1,000-node random graph with tied weights, on the native route, equal
+    to a plain Kruskal. The perspective shim on a list of ten (200, 2)
+    arrays: status 0. Returns the record."""
+    from mvrecon_tpu_torch.bundle_adjustment import BundleAdjuster
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.minimum_spanning_tree import MinimumSpanningTree, UnionFind
+    from mvrecon_tpu_torch.perspective_camera_calibration import (
+        perspective_self_calibration_full,
+    )
+    from mvrecon_tpu_torch.runtime.native import mst_native
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    scene = make_synthetic_scene(gen, n_images=VIEWS, n_slices=adjuster_points // 20,
+                                 n_angles=20, dtype=torch.float32)
+    npts = scene.X.shape[0]
+    X0, K, R, t0 = perturbed_cameras(scene, seed=60)
+    x = scene.x.transpose(0, 1).contiguous()
+    del scene
+    coupling = npts * VIEWS * 27 * x.element_size()
+    chunked = coupling > BundleAdjuster.CHUNKED_THRESHOLD_BYTES
+    torch.cuda.synchronize()
+    reset_launch_counts(fs, sy)
+    start = time.perf_counter()
+    ba = BundleAdjuster(x, X0, K, R, t0, axis="x-up_z-forward")
+    ba.optimize(2.0, 0.0, max_iter=ADJUSTER_ITERS, is_debug=True)
+    err = float(ba.result.error)
+    wall = time.perf_counter() - start
+    launches = launch_counts(fs, sy)
+    log = ba.get_log()
+    adjuster = {
+        "points": npts, "views": VIEWS, "coupling_gb": coupling / 1e9,
+        "threshold_gb": BundleAdjuster.CHUNKED_THRESHOLD_BYTES / 1e9, "chunked": chunked,
+        "iterations": ADJUSTER_ITERS, "n_iter": ba.result.n_iter, "wall_s": wall,
+        "log_keys": sorted(log[0]), "log_E": [r["reprojection_error"] for r in log],
+        "reprojection_error": err, "E_vs_noise_floor": err / (npts * VIEWS * 2 * NOISE**2),
+        "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+    }
+    print("bundle_adjuster " + json.dumps(adjuster), flush=True)
+    del x, ba
+    if adjuster_points >= 20_000:
+        check(chunked, f"BundleAdjuster at {npts} x {VIEWS}: coupling {coupling / 1e9:.2f} GB "
+              "is not above the threshold")
+    check(adjuster["log_keys"] == (["reprojection_error"] if chunked
+                                   else ["basis", "points", "pos", "reprojection_error"]),
+          f"BundleAdjuster log keys {adjuster['log_keys']}")
+    check(len(log) == adjuster["n_iter"] + 1 and math.isclose(log[-1]["reprojection_error"], err,
+                                                              rel_tol=1e-6),
+          f"BundleAdjuster log {adjuster['log_E']} does not end at E {err}")
+    check(math.isfinite(err) and err < log[0]["reprojection_error"],
+          f"BundleAdjuster E {err} against its start {log[0]['reprojection_error']}")
+    check((launches[0] > 0) == chunked and launches[1] == 0,
+          f"BundleAdjuster launches (K2, K1) {launches}, chunked {chunked}")
+
+    rng = np.random.default_rng(61)
+    edges = rng.integers(0, MST_NODES, size=(MST_EDGES, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    weights = rng.integers(0, 10, size=len(edges)).astype(np.float64)
+    check(mst_native.available(), f"the native MST did not build: {mst_native.build_error()}")
+    start = time.perf_counter()
+    tree = MinimumSpanningTree(edges, weights).solve()
+    native_s = time.perf_counter() - start
+    start = time.perf_counter()
+    uf = UnionFind(MST_NODES)
+    keep = [k for k in np.argsort(weights, kind="stable")
+            if uf.union(int(edges[k, 0]), int(edges[k, 1]))]
+    plain_s = time.perf_counter() - start
+    mst = {"nodes": MST_NODES, "edges": len(edges), "distinct_weights": 10,
+           "tree_edges": len(tree), "native": True, "native_s": native_s, "plain_s": plain_s,
+           "equal_to_plain": bool(np.array_equal(tree[:, :2], edges[keep])
+                                  and np.array_equal(tree[:, 2], weights[keep]))}
+    print("mst " + json.dumps(mst), flush=True)
+    check(mst["equal_to_plain"] and len(tree) == MST_NODES - 1,
+          f"MST: {len(tree)} edges, equal to the plain Kruskal: {mst['equal_to_plain']}")
+
+    sc = make_synthetic_scene(torch.Generator(device="cuda").manual_seed(62), n_images=10,
+                              dtype=torch.float32)
+    calib = perspective_self_calibration_full([xi.cpu().numpy() for xi in sc.x], tol=1e-2,
+                                              method="dual")
+    shim = {"points": calib.X.shape[0], "views": calib.R.shape[0], "status": calib.status,
+            "depth_iters": calib.depth_iters, "device": str(calib.X.device),
+            "finite": finite(torch, calib.X, calib.R, calib.t, calib.K)}
+    print("perspective_shim " + json.dumps(shim), flush=True)
+    check(shim["status"] == 0 and shim["finite"] and calib.X.is_cuda
+          and tuple(calib.X.shape) == (200, 3),
+          f"perspective shim: {shim}")
+    return {"bundle_adjuster": adjuster, "mst": mst, "perspective_shim": shim}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--points", type=int, default=100_000)
@@ -2421,6 +2695,16 @@ def main() -> int:
     del sparse_prob
     torch.cuda.empty_cache()
     entry_rec = sparse_entry_points(torch, fs, sy, args.bal_points)
+    torch.cuda.empty_cache()
+
+    # 4x. reconstruct on an npz of the dense headline's scene; 4y. bench-ba,
+    # chunked at the north star's width and dense at the headline's; 4z. the
+    # reference-named API (BundleAdjuster above its chunked threshold, the
+    # native MST, the perspective shim)
+    recon_recs = reconstruct_on_card(torch, fs, sy, args.dense_points)
+    bench_recs = bench_ba_on_card(torch, fs, sy, args.points, args.dense_points)
+    api_rec = reference_api_on_card(torch, fs, sy, args.bal_points)
+    torch.cuda.empty_cache()
 
     # 4e. the large pipeline with the camera bootstrap, on phase 4's scene
     _, scene = north_star_scenes(torch, make_synthetic_scene, args.points)
@@ -2584,6 +2868,13 @@ def main() -> int:
                 + [entry_rec["resume_launches"][i]],
                 "5": sparse_small["launches_gpu"][i]}
 
+    # the command-line and reference-API phases' launches of either kernel
+    def cli_launches(i: int) -> dict:
+        key = ("syrk_acc_launches", "syrk_lower_launches")[i]
+        return {"launches_reconstruct": {m: r[key] for m, r in recon_recs.items()},
+                "launches_bench_ba": {m: r[key] for m, r in bench_recs.items()},
+                "launches_bundle_adjuster": api_rec["bundle_adjuster"][key]}
+
     # 6. result lines
     kernels = [{
         "name": "syrk_acc", "route": "cuda", "source": "mvrecon_tpu_torch/csrc/syrk_acc.cu",
@@ -2592,6 +2883,7 @@ def main() -> int:
         "launches_dense_pipeline": p_launches[0], "launches_bootstrap_pipeline": b_launches,
         "launches_robust_chunked": k2_robust, "launches_distorted_chunked": k2_distorted,
         "launches_sparse": sparse_launches(0),
+        **cli_launches(0),
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
@@ -2610,6 +2902,7 @@ def main() -> int:
         "launches_full_opencv_streamed": full_streamed_rec["syrk_lower_launches"],
         "launches_bal": {m: r["syrk_lower_launches"] for m, r in bal_recs.items()},
         "launches_sparse": sparse_launches(1),
+        **cli_launches(1),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

@@ -10,12 +10,32 @@ the JAX package's.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on CPU tensors each kernel wrapper runs its plain PyTorch version.
+Importing the package builds no kernel and touches no CUDA device.
 
-Ported so far: every entry point of ``models/pipelines.py`` on one
-device (the affine pipeline, the dense perspective pipeline and the large
-one with the fused chunked BA core and its accumulating SYRK kernel),
-scene batching (``parallel/batched.py``), and the host-streamed BA with
-the packed SYRK kernel.
+Ported so far, on one device:
+
+- every entry point of ``models/pipelines.py`` (the affine pipeline, the
+  dense perspective pipeline, the large one with the camera bootstrap) and
+  scene batching (``parallel/batched.py``);
+- the four BA cores: dense (one problem or lanes), chunked (the fused
+  build on the accumulating SYRK kernel, the non-fused one on the packed
+  SYRK kernel), host-streamed (packed SYRK) and the sparse observation
+  list, each with the robust losses and the six distortion families,
+  fixed or refit; ``models/covariance.py``; triangulation, point
+  (un)distortion;
+- ``runtime/``: I/O (npz, BAL, COLMAP, PLY), npz checkpoints and the
+  resumable drivers, convergence logging, trace capture and timers, and
+  the native (C++) MST;
+- the command line (``cli.py``: ``euclidean``, ``euclidean-large``,
+  ``affine``, ``batch``, ``reconstruct``, ``bal``, ``bench-ba``);
+- the reference-named API: ``bundle_adjustment.BundleAdjuster``,
+  ``camera``, ``factorization``, ``affine_camera_calibration``,
+  ``perspective_camera_calibration``, ``utils``, ``minimum_spanning_tree``
+  and ``visualization`` (matplotlib, imported only to draw).
+
+Not ported yet: the device meshes and the sharded cores (``parallel/``).
 """
 
 __version__ = "0.1.0"
+
+from . import config  # noqa: F401

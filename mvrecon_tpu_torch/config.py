@@ -48,6 +48,11 @@ def _numpy_dtype(dt: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dt)).dtype
 
 
+def as_numpy(a) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
 def as_tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """numpy array, scalar or tensor -> tensor on ``device`` in ``dtype``."""
     if not torch.is_tensor(a):

@@ -43,6 +43,11 @@ def sample_hemisphere_points(generator: torch.Generator, num: int, r: float,
     )
 
 
+def add_noise(generator: torch.Generator, x: torch.Tensor, scale: float) -> torch.Tensor:
+    """x + N(0, scale^2) noise drawn from ``generator`` (on x's device)."""
+    return x + scale * torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+
+
 class SyntheticScene(NamedTuple):
     """Ground truth and noisy observations of one synthetic scene."""
 

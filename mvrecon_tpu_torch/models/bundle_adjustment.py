@@ -873,7 +873,7 @@ _FOV_GN_STEPS = 6
 
 
 def fit_distortion(state: BAState, x, vis, f0: float, shared: bool = False,
-                   tangential: bool = False, model: str | None = None,
+                   axis_name=None, tangential: bool = False, model: str | None = None,
                    dist=None) -> torch.Tensor:
     """Distortion refit at the current geometry.
 
@@ -888,7 +888,10 @@ def fit_distortion(state: BAState, x, vis, f0: float, shared: bool = False,
     pass is a sum over points (:func:`_refit_rounds`). ``shared=True``
     ties the parameters across the cameras: the per-camera terms sum into
     one system. A camera whose system is degenerate gets zeros (a FOV or
-    full-OPENCV camera keeps its current values)."""
+    full-OPENCV camera keeps its current values). ``axis_name`` (the
+    sharded refit) is not ported and raises ``NotImplementedError``."""
+    if axis_name is not None:
+        raise NotImplementedError("the sharded cores are not ported yet")
     if model is None:
         model = "opencv" if tangential else "radial"
     _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
@@ -1280,13 +1283,20 @@ def _prepare_distortion(distortion, config: LMConfig, nf: int, lane_dims: int, d
     return as_tensor(distortion, device, dtype), model
 
 
-def lm_step(x, state: BAState, vis, free, f0: float, c):
+def lm_step(x, state: BAState, vis, free, f0: float, c, axis_name=None, dist=None,
+            distortion_model: str = "auto"):
     """One damped Gauss-Newton/LM step: derivatives -> Schur solve ->
-    update -> new error. Returns (new_state, error_before, error_after)."""
-    derivs, e0 = _compute_derivs(state, x, vis, free, f0)
+    update -> new error, through the distortion ``dist`` (held fixed; the
+    model from its columns unless ``distortion_model`` names it). Returns
+    (new_state, error_before, error_after). ``axis_name`` (the sharded
+    step) is not ported and raises ``NotImplementedError``."""
+    if axis_name is not None:
+        raise NotImplementedError("the sharded cores are not ported yet")
+    model = resolve_distortion_model(dist, distortion_model)
+    derivs, e0 = _compute_derivs(state, x, vis, free, f0, dist, model)
     delta_xi, delta_x = _damped_solve(derivs, c, free)
     new = _apply_update(state, delta_xi, delta_x)
-    return new, e0, _state_error(new, x, vis, f0)
+    return new, e0, _state_error(new, x, vis, f0, dist, model)
 
 
 def _lm_damping(config: LMConfig, accepted, c, nu, e_prev, e_trial, pred):

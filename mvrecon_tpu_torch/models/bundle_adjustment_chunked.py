@@ -369,6 +369,7 @@ def bundle_adjust_chunked(
 
 def fit_distortion_chunked(state: BAState, x, vis, f0: float, chunk_size: int,
                            shared: bool = False, huber_delta: float | None = None, dist=None,
+                           axis_name=None, tangential: bool | None = None,
                            model: str | None = None, robust_kind: str = "huber") -> torch.Tensor:
     """The distortion refit (``fit_distortion``) with each pass's terms
     summed over point chunks, so no more than one chunk's terms exist at a
@@ -377,10 +378,17 @@ def fit_distortion_chunked(state: BAState, x, vis, f0: float, chunk_size: int,
     when None) and take one pass over the chunks each. With
     ``huber_delta`` the terms are IRLS-weighted by the residuals of the
     model ``dist``. The model follows ``dist``'s columns unless ``model``
-    names it. x (P, F, 2) and vis (P, F) or (P, 1) are tensors on one
-    device; the tail chunk is padded with zero visibility."""
+    names it or ``tangential`` picks OPENCV (True) or radial (False). x
+    (P, F, 2) and vis (P, F) or (P, 1) are tensors on one device; the tail
+    chunk is padded with zero visibility. ``axis_name`` (the sharded
+    refit) is not ported and raises ``NotImplementedError``."""
+    if axis_name is not None:
+        raise NotImplementedError("the sharded cores are not ported yet")
     if model is None:
-        model = resolve_distortion_model(dist, "auto")
+        if tangential is None:
+            model = resolve_distortion_model(dist, "auto")
+        else:
+            model = "opencv" if tangential else "radial"
     npts = x.shape[0]
     pad = (-npts) % chunk_size
     X = state.X

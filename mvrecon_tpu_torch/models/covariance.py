@@ -42,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import LMConfig, as_tensor, resolve_device, result_dtype
+from ..config import LMConfig, as_tensor, resolve_device
 from ..ops.lanes import lane_view
 from ..ops.linalg import inv3x3
 from .bundle_adjustment import (
@@ -299,6 +299,7 @@ def ba_covariance_streamed(
     distortion=None,
     chunk_size: int = 4096,
     prefetch: int = 2,
+    dtype=torch.float32,
     device=None,
     timer=None,
 ) -> BACovariance:
@@ -307,25 +308,25 @@ def ba_covariance_streamed(
     anything ``np.asarray`` takes) and move to the card one chunk at a
     time through ``_ChunkFeed`` (``prefetch`` chunks ahead), in two passes:
     the Schur accumulation, then the point blocks. The working dtype is
-    x_host's. ``n_obs`` is counted from the host mask. ``timer`` (an
+    ``dtype`` (float32 unless asked, as in the JAX package), whatever
+    x_host's is. ``n_obs`` is counted from the host mask. ``timer`` (an
     ``EventTimer``) records ``pass1`` and ``pass2`` spans on the card."""
     huber_delta, robust_kind = _robust_args(config)
     dev = resolve_device(device)
     x_host = np.asarray(x_host)
-    dt = result_dtype(x_host)
     vis_host = None if visibility is None else np.asarray(visibility)
     npts, nf = x_host.shape[0], x_host.shape[1]
-    dist, model = _distortion_args(distortion, config, nf, 0, dt, dev)
+    dist, model = _distortion_args(distortion, config, nf, 0, dtype, dev)
     n_obs = torch.tensor(npts * nf if vis_host is None else np.count_nonzero(vis_host > 0),
                          device=dev)
 
     X0, R0, t0, info = normalize_gauge(
-        as_tensor(X, dev, dt), as_tensor(R, dev, dt), as_tensor(t, dev, dt), axis
+        as_tensor(X, dev, dtype), as_tensor(R, dev, dtype), as_tensor(t, dev, dtype), axis
     )
-    f_in, u_in = intrinsics_from_K(as_tensor(K, dev, dt), f0)
+    f_in, u_in = intrinsics_from_K(as_tensor(K, dev, dtype), f0)
     cam = BAState(X=X0[:0], f=f_in, u=u_in, t=t0, R=R0)
-    free = gauge_mask(nf, axis, dt, dev)
-    feed = _ChunkFeed(x_host, vis_host, chunk_size, dt, dev, prefetch=prefetch, timer=timer)
+    free = gauge_mask(nf, axis, dtype, dev)
+    feed = _ChunkFeed(x_host, vis_host, chunk_size, dtype, dev, prefetch=prefetch, timer=timer)
 
     def X_chunk(lo, hi):
         if hi - lo == feed.chunk:
@@ -336,7 +337,7 @@ def ba_covariance_streamed(
         return timer.span(name) if timer is not None else contextlib.nullcontext()
 
     with span("pass1"):
-        accs = _zero_accs(nf, dt, dev)
+        accs = _zero_accs(nf, dtype, dev)
         for lo, hi, x_c, vis_c in feed:
             accs = _cov_accumulate_chunk(accs, cam, X_chunk(lo, hi), x_c, vis_c, free, f0,
                                          huber_delta, robust_kind, dist, model)

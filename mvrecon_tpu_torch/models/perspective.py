@@ -452,6 +452,30 @@ def predict_world_axis(x, r, t) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
     )
 
 
+def normalize_world_axis_first_camera(x, r, t) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Move the scene into camera 0's frame, scaled so that the baseline
+    from camera 0 to camera 1 has a unit component along camera 0's y."""
+    e_y = torch.tensor([0.0, 1.0, 0.0], dtype=x.dtype, device=x.device)
+    s = e_y @ r[0].T @ (t[1] - t[0])
+    return (
+        ((x - t[0]) @ r[0]) / s,
+        torch.einsum("ji,fjk->fik", r[0], r),
+        ((t - t[0]) @ r[0]) / s,
+    )
+
+
+def correct_world_coordinates(x, r, t, method: str = "first_camera"
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The world frame by ``method``: ``"first_camera"``
+    (:func:`normalize_world_axis_first_camera`) or ``"predict"``
+    (:func:`predict_world_axis`)."""
+    if method == "first_camera":
+        return normalize_world_axis_first_camera(x, r, t)
+    if method == "predict":
+        return predict_world_axis(x, r, t)
+    raise ValueError(f"unknown method: {method}")
+
+
 def perspective_self_calibration(
     x,
     f0: float = 1.0,

@@ -114,11 +114,23 @@ def det3x3(m: torch.Tensor) -> torch.Tensor:
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
+def solve3x3(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve (..., 3, 3) @ x = (..., 3) through the adjugate inverse."""
+    return torch.einsum("...ij,...j->...i", inv3x3(m), b)
+
+
 def min_eigvec_sym(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(eigenvalue, eigenvector) of the smallest eigenvalue of a symmetric
     matrix (``eigh`` sorts ascending)."""
     w, v = eigh(a)
     return w[..., 0], v[..., :, 0]
+
+
+def max_eigvec_sym(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(eigenvalue, eigenvector) of the largest eigenvalue of a symmetric
+    matrix."""
+    w, v = eigh(a)
+    return w[..., -1], v[..., :, -1]
 
 
 def orthonormalize(r: torch.Tensor) -> torch.Tensor:
@@ -188,6 +200,15 @@ def chol3x3(m: torch.Tensor) -> torch.Tensor:
     )
 
 
+def solve_lower3(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Forward substitution L y = b for (..., 3, 3) lower-triangular L and
+    (..., 3, N) right-hand sides."""
+    y0 = b[..., 0, :] / l[..., 0, 0, None]
+    y1 = (b[..., 1, :] - l[..., 1, 0, None] * y0) / l[..., 1, 1, None]
+    y2 = (b[..., 2, :] - l[..., 2, 0, None] * y0 - l[..., 2, 1, None] * y1) / l[..., 2, 2, None]
+    return torch.stack([y0, y1, y2], dim=-2)
+
+
 def inv_lower3(l: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of (..., 3, 3) lower-triangular matrices."""
     i11 = 1.0 / l[..., 0, 0]
@@ -251,3 +272,10 @@ def inv9_spd(g: torch.Tensor) -> torch.Tensor:
     z = torch.zeros_like(i11)
     linv = _block3([[i11, z, z], [m21, i22, z], [m31, m32, i33]])
     return linv.transpose(-1, -2) @ linv
+
+
+def blockdiag_scatter(blocks: torch.Tensor) -> torch.Tensor:
+    """(F, K, K) blocks -> the (F K, F K) block-diagonal matrix."""
+    nf, k, _ = blocks.shape
+    eye_f = torch.eye(nf, dtype=blocks.dtype, device=blocks.device)
+    return torch.einsum("fg,fkl->fkgl", eye_f, blocks).reshape(nf * k, nf * k)

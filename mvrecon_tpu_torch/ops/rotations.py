@@ -43,3 +43,9 @@ def rodrigues(omega: torch.Tensor) -> torch.Tensor:
     k = _hat(omega)
     eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
     return eye + a[..., None, None] * k + b[..., None, None] * (k @ k)
+
+
+def rodrigues_batched(omega: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 3, 3) rotations (:func:`rodrigues`
+    takes any leading dimensions)."""
+    return rodrigues(omega)

@@ -15,8 +15,14 @@ from __future__ import annotations
 import torch
 
 from ..config import as_tensor, resolve_device, result_dtype
-from ..geometry.camera import camera_matrix
 from .linalg import min_eigvec_sym
+
+
+def _camera_matrix(K, R, t) -> torch.Tensor:
+    # imported here: geometry.camera imports the ops package
+    from ..geometry.camera import camera_matrix
+
+    return camera_matrix(K, R, t)
 
 
 def triangulate(x, K, R, t, visibility=None, f0: float = 1.0) -> torch.Tensor:
@@ -30,7 +36,7 @@ def triangulate(x, K, R, t, visibility=None, f0: float = 1.0) -> torch.Tensor:
     dev = x.device if torch.is_tensor(x) else torch.device("cpu")
     dt = result_dtype(x)
     x, K, R, t = (as_tensor(a, dev, dt) for a in (x, K, R, t))
-    pmat = camera_matrix(K, R, t)  # (F, 3, 4)
+    pmat = _camera_matrix(K, R, t)  # (F, 3, 4)
     p1, p2, p3 = pmat[:, 0], pmat[:, 1], pmat[:, 2]  # (F, 4)
     row_u = (x[..., 0] / f0)[..., None] * p3[:, None, :] - p1[:, None, :]  # (F, P, 4)
     row_v = (x[..., 1] / f0)[..., None] * p3[:, None, :] - p2[:, None, :]
@@ -65,7 +71,7 @@ def triangulate_sparse(point_idx, cam_idx, xy, n_points: int, K, R, t, weights=N
     pi = as_tensor(point_idx, dev, torch.int64).contiguous()
     ci = as_tensor(cam_idx, dev, torch.int64)
     nf = K.shape[0]
-    pg = camera_matrix(K, R, t).reshape(nf, 12).T.contiguous().index_select(1, ci).view(3, 4, -1)
+    pg = _camera_matrix(K, R, t).reshape(nf, 12).T.contiguous().index_select(1, ci).view(3, 4, -1)
     row_u = (xy[:, 0] / f0) * pg[2] - pg[0]  # (4, N)
     row_v = (xy[:, 1] / f0) * pg[2] - pg[1]
     contrib = (row_u[:, None] * row_u[None] + row_v[:, None] * row_v[None]).reshape(16, -1)

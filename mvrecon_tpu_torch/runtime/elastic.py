@@ -19,9 +19,8 @@ import time
 from typing import Callable
 
 import numpy as np
-import torch
 
-from ..config import LMConfig
+from ..config import LMConfig, as_numpy
 from .checkpoint import checkpoint_backend
 
 
@@ -48,10 +47,6 @@ def run_with_retries(
     raise last
 
 
-def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
-
-
 def _segmented(run_segment, init_X, init_K, init_R, init_t, checkpoint_path: str,
                total_iters: int, segment_iters: int, config: LMConfig, backend: str,
                stop_on_converged: bool, on_segment=None):
@@ -64,9 +59,8 @@ def _segmented(run_segment, init_X, init_K, init_R, init_t, checkpoint_path: str
                          "alternation (distortion_rounds > 0): its refits would move with "
                          "the segment boundaries. Pass a fixed `distortion` instead.")
     save_ckpt, load_ckpt, ckpt_exists = checkpoint_backend(backend)
-    state = {"X": _host(init_X), "K": _host(init_K), "R": _host(init_R), "t": _host(init_t),
-             "c": np.asarray(config.init_damping, np.float64),
-             "nu": np.asarray(2.0, np.float64)}
+    state = {k: as_numpy(a) for k, a in zip("XKRt", (init_X, init_K, init_R, init_t))}
+    state.update(c=np.asarray(config.init_damping, np.float64), nu=np.asarray(2.0, np.float64))
     done = 0
     if ckpt_exists(checkpoint_path):
         state, step = load_ckpt(checkpoint_path, state)
@@ -79,9 +73,8 @@ def _segmented(run_segment, init_X, init_K, init_R, init_t, checkpoint_path: str
         n = int(res.n_iter)
         ran_here += n
         done += n
-        state = {"X": _host(res.X), "K": _host(res.K), "R": _host(res.R), "t": _host(res.t),
-                 "c": np.asarray(_host(res.log["c"]), np.float64),
-                 "nu": np.asarray(_host(res.log["nu"]), np.float64)}
+        state = {k: as_numpy(a) for k, a in zip("XKRt", (res.X, res.K, res.R, res.t))}
+        state.update({k: np.asarray(as_numpy(res.log[k]), np.float64) for k in ("c", "nu")})
         save_ckpt(checkpoint_path, state, step=done)
         if on_segment is not None:
             on_segment(done, res)

@@ -1,19 +1,45 @@
-"""Stage and span timers.
+"""Trace capture, named spans and stage timers.
 
-``StageTimer`` is the counterpart of ``StageTimer`` in
-``mvrecon_tpu/runtime/profiling.py``: a stage's wall is taken between two
-device synchronizations, so it holds the device work the stage queued.
-``EventTimer`` records spans of device time with CUDA events and reads
-them after the run, so a timed loop gains no synchronization.
+Counterpart of ``mvrecon_tpu/runtime/profiling.py``. ``trace_span`` names
+a range in a profiler trace and ``capture_trace`` records one
+(``torch.profiler`` in place of ``jax.profiler``). ``StageTimer``'s stage
+wall is taken between two device synchronizations, so it holds the device
+work the stage queued. ``EventTimer`` records spans of device time with
+CUDA events and reads them after the run, so a timed loop gains no
+synchronization.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Iterator
 
 import torch
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace_span(name: str) -> Iterator[None]:
+    """A named range in the profiler trace (``torch.profiler.record_function``),
+    so that a trace shows the calibration, factorization and BA stages."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def capture_trace(log_dir: str) -> Iterator[None]:
+    """Profile the block on the host, and on the card when CUDA is in use,
+    and write its Chrome/Perfetto trace to ``log_dir/trace.json``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 class StageTimer:
@@ -33,7 +59,7 @@ class StageTimer:
     def stage(self, name: str) -> Iterator[None]:
         self._sync()
         start = time.perf_counter()
-        with torch.profiler.record_function(name):
+        with trace_span(name):
             yield
         self._sync()
         self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - start

@@ -191,6 +191,6 @@ def test_affine_cli_runs_on_cpu(capsys):
                  "--float64", "--max-iter", "30"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["command"] == "affine" and rec["model"] == "symmetric"
-    assert rec["points"] == 200 and rec["views"] == 8 and rec["calib_status"] == 0
+    assert rec["n_points"] == 200 and rec["n_views"] == 8 and rec["status"] == 0
     assert set(rec["stage_walls_s"]) == {"affine_self_calibration", "bundle_adjustment"}
-    assert 0 < rec["ba_n_iter"] <= 30 and rec["E_vs_noise_floor"] < 1.5
+    assert 0 < rec["ba_iterations"] <= 30 and rec["E_vs_noise_floor"] < 1.5

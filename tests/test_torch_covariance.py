@@ -17,6 +17,8 @@ autograd:
   JAX's ``ba_covariance`` (rtol 1e-8).
 """
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -132,7 +134,7 @@ def test_streamed_matches_dense(masked, with_mask):
     vis = vis if with_mask else None
     cfg = LMConfig(**HUBER) if with_mask else LMConfig()
     got = tcov.ba_covariance_streamed(*prob, axis=AXIS, visibility=vis, config=cfg,
-                                      chunk_size=8, device="cpu")
+                                      chunk_size=8, dtype=torch.float64, device="cpu")
     dense = tcov.ba_covariance(*prob, axis=AXIS, visibility=vis, config=cfg, device="cpu")
     _same_cov(got, dense)
     if not with_mask:
@@ -221,7 +223,8 @@ def test_autograd_hessian_oracle():
 
 
 @pytest.mark.parametrize("fn", [tcov.ba_covariance, tcov.ba_covariance_chunked,
-                                tcov.ba_covariance_streamed],
+                                functools.partial(tcov.ba_covariance_streamed,
+                                                  dtype=torch.float64)],
                          ids=["dense", "chunked", "streamed"])
 def test_distortion_raises(fn):
     """The distortion families of the second slice, which raised here

@@ -288,7 +288,8 @@ def _solved(model):
 COVARIANCES = {
     "dense": lambda *a, **kw: tcov.ba_covariance(*a, **kw),
     "chunked": lambda *a, **kw: tcov.ba_covariance_chunked(*a, chunk_size=CHUNK, **kw),
-    "streamed": lambda *a, **kw: tcov.ba_covariance_streamed(*a, chunk_size=CHUNK, **kw),
+    "streamed": lambda *a, **kw: tcov.ba_covariance_streamed(*a, chunk_size=CHUNK,
+                                                              dtype=torch.float64, **kw),
 }
 
 

@@ -138,8 +138,8 @@ def test_cli_runs_on_cpu(capsys):
     assert main(["euclidean-large", "--n-points", "100", "--n-images", "6",
                  "--chunk-size", "64", "--max-iter", "2", "--device", "cpu"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["points"] == 100 and rec["views"] == 6 and rec["device"] == "cpu"
-    assert rec["calib_status"] == 0 and np.isfinite(rec["reprojection_error"])
+    assert rec["n_points"] == 100 and rec["n_views"] == 6 and rec["device"] == "cpu"
+    assert rec["status"] == 0 and np.isfinite(rec["reprojection_error"])
 
 
 def test_euclidean_cli_runs_on_cpu(capsys):
@@ -149,8 +149,8 @@ def test_euclidean_cli_runs_on_cpu(capsys):
                  "--device", "cpu", "--float64"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["command"] == "euclidean" and rec["eig_method"] == "power"
-    assert rec["points"] == 200 and rec["views"] == 8 and rec["device"] == "cpu"
-    assert rec["dtype"] == "float64" and rec["calib_status"] == 0 and rec["ba_n_iter"] > 0
+    assert rec["n_points"] == 200 and rec["n_views"] == 8 and rec["device"] == "cpu"
+    assert rec["dtype"] == "float64" and rec["status"] == 0 and rec["ba_iterations"] > 0
     assert set(rec["stage_walls_s"]) == {"perspective_self_calibration", "bundle_adjustment"}
     assert rec["E_vs_noise_floor"] < 1.5
 
@@ -211,3 +211,41 @@ def test_bal_sparse_defaults_to_the_card(monkeypatch, tmp_path):
 def test_io_imports_numpy_and_the_standard_library_only():
     mods = {m.split(".")[0] for m in _imported_modules(PORT / "runtime" / "io.py")}
     assert mods <= {"__future__", "typing", "os", "struct", "numpy"}, mods
+
+
+def test_cli_and_compat_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``reconstruct``, ``bench-ba``, ``BundleAdjuster`` and the other
+    reference-named shims run on the card unless asked, and raise without
+    one."""
+    from mvrecon_tpu_torch import (
+        affine_camera_calibration,
+        camera,
+        factorization,
+        perspective_camera_calibration,
+        utils,
+    )
+    from mvrecon_tpu_torch.__main__ import main
+    from mvrecon_tpu_torch.bundle_adjustment import BundleAdjuster
+    from mvrecon_tpu_torch.runtime.io import save_observations
+
+    path = str(tmp_path / "tracks.npz")
+    save_observations(path, np.zeros((4, 20, 2)))
+    x = np.zeros((4, 20, 2))
+    start = (np.zeros((20, 3)), np.zeros((4, 3, 3)), np.zeros((4, 3, 3)), np.zeros((4, 3)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: main(["reconstruct", path]),
+        lambda: main(["bench-ba", "--points", "40", "--views", "4"]),
+        lambda: BundleAdjuster(x.transpose(1, 0, 2), *start),
+        lambda: camera.Camera(np.eye(3), np.zeros(3)),
+        lambda: camera.Camera.create(),
+        lambda: camera.calc_projected_points(*start[:1], *start[1:]),
+        lambda: utils.set_points(),
+        lambda: utils.get_rotation_matrix(np.zeros(3)),
+        lambda: factorization.factorization_method(np.zeros((8, 20))),
+        lambda: affine_camera_calibration.orthographic_self_calibration(x),
+        lambda: perspective_camera_calibration.perspective_self_calibration_full(list(x)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
