@@ -10,8 +10,10 @@ Phases, each of which stops the script with a non-zero exit on failure:
 2. build: every hand-written kernel, from ``mvrecon_tpu_torch/csrc/``,
    one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes (K1 also at the non-fused chunked build's Y
-   (2304, 9000), and its deferred-mirror sum over two chunks) and at
+   the main paths' shapes (K2 also at ``BundleAdjuster``'s Y (12288, 9216),
+   from ``bundle_adjust_chunked``'s default chunk of 4096; K1 also at the
+   non-fused chunked build's Y (2304, 9000), and its deferred-mirror sum
+   over two chunks) and at
    k_rows that are no multiple of a kernel's stage, with its time, the
    plain version's, one PyTorch call's and the bound of the work;
 4. pipeline: ``euclidean_reconstruction_large`` at 100k points x 1000
@@ -105,9 +107,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    checkpoint; phases 4u-4w launch neither kernel;
 4x. ``reconstruct`` in process on an npz of the dense headline's scene
    (10k points x 100 views, ``X_gt``), 0.1 % of the observations moved by
-   +0.1 and masked out in ``visibility``, ``--eig-method lowrank``: float32
-   with ``--output``,
-   ``--output-ply`` and ``--log-json`` (status 0, E over the visible
+   +0.1 and masked out in ``visibility``: float32 with ``--output``,
+   ``--output-ply`` and ``--log-json`` (the low-rank depth eigensolve picked,
+   since the dense one's Grams exceed the card; status 0, E over the visible
    observations at the floor, the outputs read back at their shapes), then
    ``--float64 --covariance`` (sigma within 5 %); no launch of either kernel;
 4y. ``bench-ba`` in process: ``--chunked`` at 100k points x 1000 views,
@@ -166,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import math
 import statistics
@@ -2195,9 +2198,10 @@ def reconstruct_on_card(torch, fs, sy, dense_points: int) -> dict:
     """Phase 4x: ``reconstruct`` in process on an npz of the dense
     headline's scene (10k points x 100 views, sigma = ``NOISE``, with
     ``X_gt``), 0.1 % of its observations moved by +0.1 and masked out in
-    ``visibility``: ``--eig-method lowrank``, float32 with ``--output``,
-    ``--output-ply`` and ``--log-json``, then ``--float64 --covariance`` (the float32 dense
-    covariance at this size is F10's NaN). Holds status 0, E over the
+    ``visibility``: float32 with ``--output``, ``--output-ply`` and
+    ``--log-json``, then ``--float64 --covariance`` (the float32 dense
+    covariance at this size is F10's NaN). Holds, at 10k points, that the
+    command picked the low-rank depth eigensolve; status 0, E over the
     visible observations / (n_visible 2 sigma^2) < 1.5, the aligned RMSE
     reported, the outputs read back at their shapes, the log file's lines
     equal to the records, sqrt(sigma^2)/sigma within 5 % of 1 with finite
@@ -2225,11 +2229,8 @@ def reconstruct_on_card(torch, fs, sy, dense_points: int) -> dict:
         tio.save_observations(path, x.cpu().numpy(), visibility=vis_host,
                               X_gt=scene.X.cpu().numpy())
         for name, extra in (("float32", []), ("float64_covariance", ["--float64", "--covariance"])):
-            # the dual depth loop's exact eigensolve forms (F, P, P) Grams, 37 GB
-            # at this width; the primary method's start leaves BA at 1.8x the
-            # floor here (a CPU run at 2k points); so lowrank, as phase 4d
             rec, launches, wall = run_cli(torch, fs, sy, [
-                "reconstruct", path, "--eig-method", "lowrank", "--max-iter",
+                "reconstruct", path, "--max-iter",
                 str(RECONSTRUCT_ITERS), "--output", out_npz, "--output-ply", ply,
                 "--log-json", log] + extra)
             d = tio.load_observations(out_npz)
@@ -2247,6 +2248,11 @@ def reconstruct_on_card(torch, fs, sy, dense_points: int) -> dict:
                     "t": [DENSE_VIEWS, 3], "x": [DENSE_VIEWS, npts, 2]}
             if "sigma" in rec:
                 want.update(point_cov=[npts, 3, 3], camera_cov=[DENSE_VIEWS, 9, 9], sigma2=[])
+            # the dual depth loop's dense eigensolve would hold four (F, P, P)
+            # arrays, 160 GB at this width in float32
+            if dense_points >= 10_000:
+                check(rec["eig_method"] == "lowrank",
+                      f"reconstruct {name}: eigensolve {rec['eig_method']}")
             check(rec["status"] == 0 and rec["n_visible"] == n_vis
                   and (rec["n_points"], rec["n_views"]) == (npts, DENSE_VIEWS),
                   f"reconstruct {name}: record {rec}")
@@ -2462,6 +2468,9 @@ def main() -> int:
     k2 = check_syrk_acc(torch, fs, sy, 3 * CHUNK, n_acc, args.reps, seed=0)
     check_syrk_acc(torch, fs, sy, 384, 9 * 512, args.reps, seed=1)
     check_syrk_acc(torch, fs, sy, 300, 9 * 512, args.reps, seed=8)
+    # K2 at 4z's Y: BundleAdjuster runs the chunked core at its default chunk
+    adjuster_chunk = inspect.signature(bundle_adjust_chunked).parameters["chunk_size"].default
+    k2_adjuster = check_syrk_acc(torch, fs, sy, 3 * adjuster_chunk, n_acc, args.reps, seed=12)
     # K1 at the streamed chunk, Y (3 * 16384, 9 * 500) laid out K-major as
     # the streamed path lays it out, at unaligned shapes given row-major
     # (copied by the wrapper) and K-major, and at k_rows not a multiple of
@@ -2889,6 +2898,9 @@ def main() -> int:
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
         "tolerance_rel": 1e-5, "shape": k2["shape"], "tflops": k2["tflops"],
         "design": K2_DESIGN,
+        "at_bundle_adjuster": {key: k2_adjuster[key] for key in (
+            "shape", "max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "tflops")},
     }, {
         "name": "syrk_lower", "route": "cuda", "source": "mvrecon_tpu_torch/csrc/syrk_lower.cu",
         "replaces": "mvrecon_tpu/ops/pallas_syrk.py:42",

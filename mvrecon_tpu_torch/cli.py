@@ -110,9 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
                    "core): a summary in the record, the blocks in --output")
     p.add_argument("--method", choices=["primary", "dual"], default="dual")
     p.add_argument("--tol", type=float, default=1e-2)
-    p.add_argument("--eig-method", choices=["eigh", "lowrank", "power"], default="eigh",
-                   help="the depth loop's eigensolve (euclidean pipeline): the exact dual "
-                   "one forms (F, P, P) Grams; lowrank keeps it at width 12")
     p.add_argument("--model", choices=["orthographic", "symmetric", "paraperspective"],
                    default="paraperspective")
 
@@ -452,6 +449,24 @@ def _cmd_synthetic(args, out: dict, dev, dt) -> None:
         _show(sc.x, res)
 
 
+# The dual depth step's dense eigensolve holds about this many (F, P, P)
+# arrays at once: the Gram of the images, the weighted Gram, the
+# normalization's outer product and the eigenvectors
+_DUAL_GRAMS = 4
+
+
+def _reconstruct_eig_method(method: str, nf: int, npts: int, dev, dt) -> str:
+    """The depth loop's eigensolve for ``reconstruct``: the dense one
+    (``eigh``), as the JAX command runs it, unless the dual method's
+    (F, P, P) arrays would not fit in the card's free memory (four of
+    40 GB at 10k points x 100 views in float32); then ``lowrank``, which
+    solves the same rank-12 eigenproblems through their width-12 factors."""
+    if method != "dual" or dev.type != "cuda":
+        return "eigh"
+    grams = _DUAL_GRAMS * nf * npts * npts * torch.empty((), dtype=dt).element_size()
+    return "lowrank" if grams > torch.cuda.mem_get_info(dev)[0] else "eigh"
+
+
 def _cmd_reconstruct(args, out: dict, dev, dt) -> None:
     """``reconstruct``: the euclidean or the affine pipeline on the tracks
     of an npz file (``runtime.io.save_observations``'s layout), the
@@ -478,8 +493,10 @@ def _cmd_reconstruct(args, out: dict, dev, dt) -> None:
     timer = StageTimer()
     start = time.perf_counter()
     if args.pipeline == "euclidean":
+        eig_method = _reconstruct_eig_method(args.method, nf, x.shape[1], dev, dt)
+        out["eig_method"] = eig_method
         res = euclidean_reconstruction(x, f0=f0, tol=args.tol, method=args.method,
-                                       config=config, eig_method=args.eig_method,
+                                       config=config, eig_method=eig_method,
                                        visibility=visibility, device=dev, timer=timer)
     else:
         f = as_tensor(data.get("f", np.full((nf,), args.f)), dev, dt)

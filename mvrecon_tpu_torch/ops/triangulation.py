@@ -25,15 +25,16 @@ def _camera_matrix(K, R, t) -> torch.Tensor:
     return camera_matrix(K, R, t)
 
 
-def triangulate(x, K, R, t, visibility=None, f0: float = 1.0) -> torch.Tensor:
+def triangulate(x, K, R, t, visibility=None, f0: float = 1.0, device=None) -> torch.Tensor:
     """DLT-triangulate observations x (F, P, 2) through cameras (K, R, t)
     -> points (P, 3). The rows of a point's design matrix are
     (x/f0 P3 - P1) and (y/f0 P3 - P2) per camera; the point is the least-
     squares null vector, from the Gram matrix's smallest eigenvector.
     visibility is (P, F). Each input may be a tensor or a numpy array; all
-    are taken in x's dtype (float32 when x is not floating) on x's device
-    (the CPU for a numpy x)."""
-    dev = x.device if torch.is_tensor(x) else torch.device("cpu")
+    are taken in x's dtype (float32 when x is not floating) on ``device``
+    when it is given, else on x's device for a tensor x and on the card for
+    a numpy x."""
+    dev = x.device if device is None and torch.is_tensor(x) else resolve_device(device)
     dt = result_dtype(x)
     x, K, R, t = (as_tensor(a, dev, dt) for a in (x, K, R, t))
     pmat = _camera_matrix(K, R, t)  # (F, 3, 4)

@@ -33,8 +33,9 @@ from mvrecon_tpu_torch.ops.procrustes import umeyama
 from mvrecon_tpu_torch.runtime import io as tio
 from mvrecon_tpu_torch.runtime.profiling import TRACE_FILE
 
-# keys the port's records add to JAX's
-PORT_EXTRAS = {"device", "dtype", "wall_s", "stage_walls_s"}
+# keys the port's records add to JAX's (``eig_method``: the depth loop's
+# eigensolve, which the port picks from the card's free memory)
+PORT_EXTRAS = {"device", "dtype", "wall_s", "stage_walls_s", "eig_method"}
 # JAX's flags that the port does not take: XLA switches (``--device`` is the
 # port's counterpart) and the sharded paths, which are not ported yet
 UNPORTED_FLAGS = {"--platform", "--num-cpu-devices", "--shard-points"}
@@ -112,7 +113,7 @@ def test_reconstruct_matches_jax(tracks, tmp_path, capsys, covariance):
                                                   "--output-ply", outs[name][1]], capsys),)
     want, got = outs["jax"][2], outs["port"][2]
     assert set(got) - set(want) == PORT_EXTRAS and set(want) <= set(got)
-    assert got["device"] == "cpu" and got["dtype"] == "float64"
+    assert got["device"] == "cpu" and got["dtype"] == "float64" and got["eig_method"] == "eigh"
     for k in ("command", "status", "ba_iterations", "n_points", "n_views", "n_visible",
               "output", "output_ply"):
         if k.startswith("output"):
@@ -136,6 +137,24 @@ def test_reconstruct_matches_jax(tracks, tmp_path, capsys, covariance):
     header = _ply_header(outs["port"][1])
     assert (b"property float quality" in header) == covariance
     assert b"element vertex 206" in header  # 200 points and 6 camera centres
+
+
+def test_reconstruct_picks_the_eigensolve_from_free_memory(monkeypatch):
+    """``reconstruct``'s depth eigensolve: the dense one, as JAX's command
+    runs it, unless the dual method's four (F, P, P) arrays exceed the
+    card's free memory; on the CPU always the dense one."""
+    free = 80e9
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (free, 80e9))
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    pick = tcli._reconstruct_eig_method
+    assert pick("dual", 100, 10_000, cuda, torch.float32) == "lowrank"  # 160 GB
+    assert pick("dual", 100, 2_000, cuda, torch.float32) == "eigh"  # 6.4 GB
+    assert pick("dual", 100, 6_000, cuda, torch.float32) == "eigh"  # 57.6 GB
+    assert pick("dual", 100, 6_000, cuda, torch.float64) == "lowrank"  # 115.2 GB
+    assert pick("primary", 100, 10_000, cuda, torch.float32) == "eigh"  # (P, F, F) Grams
+    assert pick("dual", 100, 10_000, cpu, torch.float32) == "eigh"
+    free = 1e9
+    assert pick("dual", 100, 2_000, cuda, torch.float32) == "lowrank"
 
 
 def test_reconstruct_affine_appends_log_json(tracks, tmp_path, capsys):

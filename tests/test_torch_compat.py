@@ -346,11 +346,13 @@ def test_affine_shim_accepts_a_list(scene, fn):
 
 def test_perspective_shim_matches_jax(scene):
     """The list input, the (X, R, t, K) return and the full result with
-    ``eig_method`` equal JAX's shim."""
+    ``eig_method`` equal JAX's shim (both through ``lowrank``, so that JAX
+    compiles one depth loop)."""
     x = scene[0]
     got = t_persp.perspective_self_calibration([xi for xi in x], 1.0, tol=1e-2, method="dual",
-                                               **CPU)
-    want = j_persp.perspective_self_calibration([xi for xi in x], 1.0, tol=1e-2, method="dual")
+                                               eig_method="lowrank", **CPU)
+    want = j_persp.perspective_self_calibration([xi for xi in x], 1.0, tol=1e-2, method="dual",
+                                                eig_method="lowrank")
     for g, w in zip(got, want):
         _close(g, w, 1e-8)
     full = t_persp.perspective_self_calibration_full(x, tol=1e-2, method="dual",
@@ -446,13 +448,14 @@ def test_bundle_adjuster_log_matches_jax_and_chunked_dispatch(scene, monkeypatch
     """``BundleAdjuster``'s debug log equals JAX's record for record
     (1e-8); with the threshold lowered it dispatches to the chunked core,
     whose scalar log equals the dense one's errors (1e-8). The chunked
-    core runs in chunks of 64 here: in float64 on one CPU thread its fused
-    build at the default 4096 takes 6 s an iteration on this scene."""
+    core runs in chunks of 64, for one iteration: its fused build pads the
+    cameras to a 4608-wide system whatever the scene, whose solves take
+    2.8 s an iteration in float64 on one CPU thread."""
     start = _ba_start(scene)
 
-    def run(mod, **kw):
+    def run(mod, max_iter=2, **kw):
         ba = mod.BundleAdjuster(*start, axis=AXIS, **kw)
-        out = ba.optimize(2.0, 0.0, max_iter=2, is_debug=True)
+        out = ba.optimize(2.0, 0.0, max_iter=max_iter, is_debug=True)
         return ba, out
 
     dense, out = run(t_ba_shim, **CPU)
@@ -469,9 +472,9 @@ def test_bundle_adjuster_log_matches_jax_and_chunked_dispatch(scene, monkeypatch
     monkeypatch.setattr(t_ba_shim.BundleAdjuster, "CHUNKED_THRESHOLD_BYTES", 1)
     monkeypatch.setattr(t_ba_shim, "bundle_adjust_chunked",
                         functools.partial(tbc.bundle_adjust_chunked, chunk_size=64))
-    chunked, _ = run(t_ba_shim, **CPU)
+    chunked, _ = run(t_ba_shim, max_iter=1, **CPU)
     clog = chunked.get_log()
-    assert len(clog) == len(dlog) and set(clog[0]) == {"reprojection_error"}
+    assert len(clog) == 2 and set(clog[0]) == {"reprojection_error"}
     for a, b in zip(dlog, clog):
         assert b["reprojection_error"] == pytest.approx(a["reprojection_error"], rel=1e-8)
     assert "n_solver_retries_total" in chunked.result.log  # the chunked core's result

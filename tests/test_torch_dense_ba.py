@@ -320,13 +320,15 @@ def test_triangulate_matches_jax(masked, monkeypatch):
 
 
 def test_triangulate_takes_numpy():
-    """numpy x, K, R, t and visibility give what tensors give."""
+    """numpy x, K, R, t and visibility give on the CPU, when asked for it,
+    what CPU tensors give."""
     x, _, K, R, t = _problem(8, 10)
     x_fp = np.ascontiguousarray(x.transpose(1, 0, 2))
     vis = _mask(x.shape[:2])
     want = t_triangulate(*(torch.from_numpy(a) for a in (x_fp, K, R, t)),
                          visibility=torch.from_numpy(vis))
-    got = t_triangulate(x_fp, K, R, t, visibility=vis)
+    got = t_triangulate(x_fp, K, R, t, visibility=vis, device="cpu")
+    assert got.device.type == "cpu"
     assert torch.equal(got, want)
 
 

@@ -222,6 +222,7 @@ def test_cli_and_compat_entry_points_default_to_the_card(monkeypatch, tmp_path):
         camera,
         factorization,
         perspective_camera_calibration,
+        ops,
         utils,
     )
     from mvrecon_tpu_torch.__main__ import main
@@ -244,6 +245,7 @@ def test_cli_and_compat_entry_points_default_to_the_card(monkeypatch, tmp_path):
         lambda: utils.get_rotation_matrix(np.zeros(3)),
         lambda: factorization.factorization_method(np.zeros((8, 20))),
         lambda: affine_camera_calibration.orthographic_self_calibration(x),
+        lambda: ops.triangulate(x, *start[1:]),
         lambda: perspective_camera_calibration.perspective_self_calibration_full(list(x)),
     ]
     for call in calls:
