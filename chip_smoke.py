@@ -140,6 +140,22 @@ Phases, each of which stops the script with a non-zero exit on failure:
    reference algorithm leaves about 4 %), then ``affine_reconstruction``
    at 10k points x 100 views for each affine model;
    phases 4c-4h launch neither kernel;
+5a. point-sharded chunked BA (``parallel/sharded_ba.py``), after 4d: 4o's
+   problem, rendered anew into host memory from its seed, through
+   ``sharded_bundle_adjust_chunked`` on a one-rank NCCL group, against
+   4o's run: the same retries and K1 launches, E within 1e-6, and the
+   all-reduce's bytes and time a retry;
+5b. the same problem on two ranks on the one card, processes that the
+   script starts (``--sharded-rank``) with gloo named for CUDA tensors
+   (NCCL takes one rank a card): 5a's retries, E within 1e-5 of 5a's, X,
+   K, R, t within ``SHARDED_X_ATOL`` and ``SHARDED_CAM_ATOL`` of 5a's, the
+   ranks' results equal; K1 launches, all-reduce bytes and ms a retry and
+   peak memory per rank. A rank that fails or passes
+   ``SHARDED_RANK_TIMEOUT_S`` stops both and fails the script;
+5c. 4c's problem through ``sharded_bundle_adjust`` on the NCCL rank (E
+   within 1e-6 of 4c's) and on the two ranks (below the start E), and one
+   ``sharded_lm_step`` against ``lm_step`` (E within 1e-6); no K1 or K2
+   launch;
 5. the pipelines and the BA cores on small scenes on the card and on the
    CPU (plain versions), which must agree, the streamed core on the card
    with prefetch 0 and 2, which must agree bit for bit, both batched
@@ -154,10 +170,10 @@ Phases, each of which stops the script with a non-zero exit on failure:
 6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
-``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r, 4e and 4y's chunked run
-(``--ba-iters`` sets the BA iterations of 4 and 4e), ``--streamed-points``
-phases 4b, 4l, 4j, 4p and 4s, ``--dense-points`` phases 4c, 4d, 4k's second
-run, 4x and 4y's dense runs, ``--bal-points`` phases 4m, 4q, 4t, 4w and 4z's
+``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r, 4e, 4y's chunked run and
+5a-5b (``--ba-iters`` sets the BA iterations of 4 and 4e),
+``--streamed-points`` phases 4b, 4l, 4j, 4p and 4s, ``--dense-points``
+phases 4c, 4d, 4k's second run, 4x, 4y's dense runs and 5c, ``--bal-points`` phases 4m, 4q, 4t, 4w and 4z's
 ``BundleAdjuster`` (below 20k points it may take the dense core, and the
 launch check follows its choice), ``--sparse-points`` 4u and 4v, and
 ``--batched-scenes`` phases 4f-4h for a quick run; the views and the
@@ -171,6 +187,7 @@ import dataclasses
 import inspect
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -272,6 +289,17 @@ MODEL_TOL = 0.25
 DISTORTION_RTOLS = {"radial": 1e-4, "opencv": 1e-4, "fisheye": 2e-4, "full_opencv": 2e-3,
                     "fov": 1e-4, "thin_prism": 5e-3}
 DIST_ITERS = 5  # 4n and 4o: Nielsen iterations a segment
+# Phases 5a-5c (point-sharded BA). One rank does the arithmetic of the
+# unsharded core plus a one-rank all-reduce, so 5a and 5c hold E to 1e-6.
+# Two ranks sum each rank's chunks apart and then add the two sums, so
+# float32 rounding moves E, and the state by far less than one noise sigma
+# (0.005): 5b holds E to 1e-5 of 5a's, X to one sigma and K, R, t to 1e-3.
+SHARDED_RANKS = 2
+SHARDED_RANK_TIMEOUT_S = 600
+SHARDED_E_RTOL_ONE_RANK = 1e-6
+SHARDED_E_RTOL_TWO_RANKS = 1e-5
+SHARDED_X_ATOL = NOISE
+SHARDED_CAM_ATOL = 1e-3
 BAL_WINDOW = 20  # 4m, scripts/bench_bal.py: each point seen by 20 consecutive of 100 views
 BAL_OUTLIER_SHARE = 0.02  # ... 2 % of the visible observations moved by 0.5 N(0, 1)
 BAL_OUTLIER_SCALE = 0.5
@@ -1436,6 +1464,7 @@ def nonfused_chunked(torch, fs, sy, scene, config, model: str = "opencv",
         "model": model, "points": npts, "views": nf, "chunk": CHUNK, "chunks": n_chunks,
         "iters_per_segment": DIST_ITERS, "rounds": cfg.distortion_rounds, "wall_s": wall,
         "n_iter": res.n_iter, "retries": retries, "wall_per_retry_s": wall / retries,
+        "retries_last_segment": res.log["n_solver_retries"],
         "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
         "syrk_lower_ms_median": statistics.median(k1_ms), "syrk_lower_ms_min": min(k1_ms),
         "syrk_lower_ms_max": max(k1_ms), "syrk_lower_s_total": sum(k1_ms) / 1e3,
@@ -1462,6 +1491,363 @@ def nonfused_chunked(torch, fs, sy, scene, config, model: str = "opencv",
           f"{name}: the recovered model's displacement is off by "
           f"{rec['model_rms_rel_err']:.4f} of the true one's (limit {MODEL_TOL})")
     return rec
+
+
+def north_star_config(LMConfig, ba_iters: int):
+    """Phase 4's Nielsen schedule (``bench.py::bench_northstar_pipeline``)."""
+    return LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=ba_iters, accept_divisor=1.0,
+                    init_damping=3e-3, damping="nielsen")
+
+
+def nonfused_problem_host(torch, tba, scene, config, model: str = "opencv",
+                          truth_k=OPENCV_TRUTH, seed: int = 32):
+    """Phase 4o's problem with its observations in host memory, rendered
+    exactly as 4o renders them on the card: (x_host (P, F, 2), start,
+    config)."""
+    truth = true_state(tba, scene)
+    nf = scene.K.shape[0]
+    dist = torch.tensor(truth_k, device="cuda").expand(nf, len(truth_k))
+    x_host = np.empty((scene.X.shape[0], nf, 2), dtype=np.float32)
+    render_all(torch, tba, truth, dist, torch.Generator(device="cuda").manual_seed(seed), x_host,
+               model=model)
+    cfg = dataclasses.replace(config, max_iter=DIST_ITERS, distortion_rounds=1,
+                              distortion_shared=True, distortion_model=model)
+    return x_host, perturbed_cameras(scene, seed=seed), cfg
+
+
+def dense_problem_host(torch, make_synthetic_scene, dense_points: int):
+    """Phase 4c's problem as host numpy (x, X0, K, R, t0), drawn from 4c's
+    seed."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scene = make_synthetic_scene(gen, n_images=DENSE_VIEWS, n_slices=dense_points // 20,
+                                 n_angles=20, dtype=torch.float32)
+    return perturbed_start(scene, seed=3, sigma=0.05)
+
+
+def sharded_run(torch, fs, sy, fn, mesh, problem, **kw) -> tuple[dict, object]:
+    """``fn(mesh, *problem, **kw)`` (a sharded BA entry point) with its K1
+    and K2 launches, its wall (host clock ending in a sync), this rank's
+    peak device memory, and its all-reduces: calls, bytes and time, each
+    timed on the host between two syncs (the first call of a process
+    group also sets up its communicator). Returns (record, result)."""
+    import torch.distributed as dist
+
+    stats = {"calls": 0, "bytes": 0, "ms": 0.0, "first_ms": None}
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        stats["ms"] += ms
+        stats["first_ms"] = ms if stats["first_ms"] is None else stats["first_ms"]
+        stats["calls"] += 1
+        stats["bytes"] += tensor.numel() * tensor.element_size()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    reset_launch_counts(fs, sy)
+    dist.all_reduce = timed_all_reduce
+    try:
+        t0 = time.perf_counter()
+        res = fn(mesh, *problem, axis="x-up_z-forward", **kw)
+        err = float(res.error)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = all_reduce
+    launches = launch_counts(fs, sy)
+    rec = {
+        "ranks": dist.get_world_size(), "backend": dist.get_backend(), "wall_s": wall,
+        "n_iter": int(res.n_iter), "reprojection_error": err,
+        "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+        "allreduce_calls": stats["calls"], "allreduce_bytes": stats["bytes"],
+        "allreduce_ms": stats["ms"], "allreduce_ms_first_call": stats["first_ms"],
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_over_start_gb": (torch.cuda.max_memory_allocated() - start_bytes) / 1e9,
+        "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+    }
+    if res.log is not None:
+        rec["retries_last_segment"] = int(res.log["n_solver_retries"])
+    return rec, res
+
+
+def per_retry(rec: dict, n_chunks: int) -> None:
+    """Add the retries (K1 launches over the chunks a rank) and the
+    all-reduce's bytes and ms a retry to a chunked record."""
+    rec["chunks_per_rank"] = n_chunks
+    rec["retries"] = rec["syrk_lower_launches"] // n_chunks
+    rec["allreduce_bytes_per_retry"] = rec["allreduce_bytes"] / rec["retries"]
+    rec["allreduce_ms_per_retry"] = rec["allreduce_ms"] / rec["retries"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_rank(args) -> int:
+    """One of phases 5b's and 5c's two ranks, a process of its own on the
+    one card (``--sharded-rank``): it joins a two-rank group with gloo
+    named for CUDA tensors (NCCL takes one rank a card), draws 4o's and
+    4c's problems in host memory from their seeds, runs
+    ``sharded_bundle_adjust_chunked`` on the first and
+    ``sharded_bundle_adjust`` on the second, and writes its records and
+    results to ``--sharded-out``."""
+    import torch
+    import torch.distributed as dist
+
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.ops import fused_schur as fs
+    from mvrecon_tpu_torch.ops import syrk as sy
+    from mvrecon_tpu_torch.parallel import sharded_ba as sba
+    from mvrecon_tpu_torch.parallel.mesh import make_mesh
+    from mvrecon_tpu_torch.runtime.distributed import initialize
+
+    world, rank = SHARDED_RANKS, args.sharded_rank
+    initialize(f"127.0.0.1:{args.sharded_port}", world, rank, backend="gloo")
+    try:
+        mesh = make_mesh({"points": world})
+        _, scene = north_star_scenes(torch, make_synthetic_scene, args.points)
+        x_host, start, cfg = nonfused_problem_host(torch, tba, scene,
+                                                   north_star_config(LMConfig, args.ba_iters))
+        del scene
+        torch.cuda.empty_cache()
+        rec, res = sharded_run(torch, fs, sy, sba.sharded_bundle_adjust_chunked, mesh,
+                               (x_host,) + start, config=cfg, chunk_size=CHUNK)
+        per_retry(rec, math.ceil(math.ceil(x_host.shape[0] / world) / CHUNK))
+        out = {f"chunked_{k}": v.cpu().numpy()
+               for k, v in zip(("X", "K", "R", "t", "distortion"),
+                               (res.X, res.K, res.R, res.t, res.distortion))}
+        del res, x_host
+        torch.cuda.empty_cache()
+        d_rec, d_res = sharded_run(torch, fs, sy, sba.sharded_bundle_adjust, mesh,
+                                   dense_problem_host(torch, make_synthetic_scene,
+                                                      args.dense_points),
+                                   config=LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=10))
+        out.update({f"dense_{k}": getattr(d_res, k).cpu().numpy() for k in ("X", "K", "R", "t")})
+        out["records"] = np.array(json.dumps({"chunked": rec, "dense": d_rec}))
+        np.savez(f"{args.sharded_out}/rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def launch_sharded_ranks(args) -> list[dict]:
+    """Start ``SHARDED_RANKS`` ranks of this script (``sharded_rank``), each
+    with its output in a file; stop them all when one fails or after
+    ``SHARDED_RANK_TIMEOUT_S``; fail unless each exits 0. Returns each
+    rank's arrays and records."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    port = free_port()
+    logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(SHARDED_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r), "--sharded-port", str(port),
+         "--sharded-out", tmp, "--points", str(args.points), "--ba-iters", str(args.ba_iters),
+         "--dense-points", str(args.dense_points)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(SHARDED_RANKS)]
+    deadline = time.monotonic() + SHARDED_RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * SHARDED_RANKS:
+        for r in range(SHARDED_RANKS):
+            with open(f"{tmp}/rank{r}.log") as f:
+                print(f"rank {r} (exit {codes[r]}):\n" + f.read()[-4000:], file=sys.stderr)
+        shutil.rmtree(tmp, ignore_errors=True)
+        check(False, f"sharded ranks exited {codes} (timeout {SHARDED_RANK_TIMEOUT_S} s)")
+    outs = []
+    for r in range(SHARDED_RANKS):
+        with np.load(f"{tmp}/rank{r}.npz") as z:
+            out = {k: z[k] for k in z.files}
+        out["records"] = json.loads(str(out["records"]))
+        outs.append(out)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return outs
+
+
+def max_abs_diff(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dict) -> dict:
+    """Phases 5a-5c, point-sharded BA (``parallel/sharded_ba.py``):
+
+    5a. 4o's problem (rendered anew into host memory from its seed)
+    through ``sharded_bundle_adjust_chunked`` under a one-rank NCCL group:
+    the same retries and K1 launches as 4o's unsharded run, E within
+    ``SHARDED_E_RTOL_ONE_RANK``;
+    5b. the same problem on two ranks on the one card (gloo: NCCL takes one
+    rank a card), each with half the points: 5a's retries, E within
+    ``SHARDED_E_RTOL_TWO_RANKS`` of 5a's, X, K, R, t within
+    ``SHARDED_X_ATOL`` and ``SHARDED_CAM_ATOL`` of 5a's, the ranks' results
+    equal; K1 launches, all-reduce bytes and ms a retry, peak memory per
+    rank;
+    5c. 4c's problem through ``sharded_bundle_adjust`` on the NCCL rank (E
+    within ``SHARDED_E_RTOL_ONE_RANK`` of 4c's) and on the two ranks
+    (reported), and one ``sharded_lm_step`` against ``lm_step``.
+
+    Returns the launches of K2 and K1 by phase."""
+    import torch.distributed as dist
+
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.parallel import sharded_ba as sba
+    from mvrecon_tpu_torch.parallel.mesh import make_mesh
+    from mvrecon_tpu_torch.runtime.distributed import initialize
+
+    initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh({"points": 1})
+        # 5a
+        _, scene = north_star_scenes(torch, make_synthetic_scene, args.points)
+        x_host, start, cfg = nonfused_problem_host(torch, tba, scene, config)
+        del scene
+        torch.cuda.empty_cache()
+        rec_a, res_a = sharded_run(torch, fs, sy, sba.sharded_bundle_adjust_chunked, mesh,
+                                   (x_host,) + start, config=cfg, chunk_size=CHUNK)
+        n_points = x_host.shape[0]
+        per_retry(rec_a, math.ceil(n_points / CHUNK))
+        floor = n_points * VIEWS * 2 * NOISE**2
+        rec_a.update(points=n_points, views=VIEWS, chunk=CHUNK, E_vs_noise_floor=(
+            rec_a["reprojection_error"] / floor), unsharded_4o={key: opencv_rec[key] for key in (
+                "wall_s", "retries", "retries_last_segment", "syrk_lower_launches",
+                "reprojection_error", "E_vs_noise_floor")})
+        rec_a["E_rel_diff_vs_4o"] = (abs(rec_a["reprojection_error"]
+                                         - opencv_rec["reprojection_error"])
+                                     / opencv_rec["reprojection_error"])
+        state_a = [t.cpu().numpy() for t in (res_a.X, res_a.K, res_a.R, res_a.t)]
+        del res_a, x_host
+        torch.cuda.empty_cache()
+        print("sharded_chunked_one_rank " + json.dumps(rec_a), flush=True)
+        check(rec_a["finite"], "5a: an output is not finite")
+        check(rec_a["syrk_lower_launches"] == opencv_rec["syrk_lower_launches"] > 0
+              and rec_a["syrk_acc_launches"] == 0,
+              f"5a: K1 launches {rec_a['syrk_lower_launches']} != 4o's "
+              f"{opencv_rec['syrk_lower_launches']}, or K2 launched")
+        check(rec_a["retries_last_segment"] == opencv_rec["retries_last_segment"],
+              f"5a: retries {rec_a['retries_last_segment']} != 4o's "
+              f"{opencv_rec['retries_last_segment']}")
+        check(rec_a["E_rel_diff_vs_4o"] <= SHARDED_E_RTOL_ONE_RANK,
+              f"5a: E differs from 4o's by {rec_a['E_rel_diff_vs_4o']:.3e}")
+
+        # 5c, one rank
+        d_start = dense_problem_host(torch, make_synthetic_scene, args.dense_points)
+        d_cfg = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=10)
+        rec_c, res_c = sharded_run(torch, fs, sy, sba.sharded_bundle_adjust, mesh, d_start,
+                                   config=d_cfg)
+        rec_c["E_rel_diff_vs_4c"] = (abs(rec_c["reprojection_error"]
+                                         - dense_rec["reprojection_error"])
+                                     / dense_rec["reprojection_error"])
+        rec_c["unsharded_4c"] = {key: dense_rec[key] for key in (
+            "wall_s", "n_iter", "reprojection_error", "E_vs_noise_floor")}
+        X_c = res_c.X.cpu().numpy()
+        del res_c
+        # one sharded_lm_step against lm_step, from 4c's normalized start
+        x, vis, state, free, _ = tba._prepare_problem(*d_start, 1.0, None, "x-up_z-forward",
+                                                      "cuda")
+        c = torch.tensor(d_cfg.init_damping, device="cuda")
+        new_s, e0_s, e1_s = sba.sharded_lm_step(mesh, d_start[0], state, vis, free, c)
+        new_u, e0_u, e1_u = tba.lm_step(x, state, vis, free, 1.0, c)
+        rec_c["lm_step"] = {
+            "E_before": float(e0_s), "E_after": float(e1_s),
+            "E_after_rel_diff": abs(float(e1_s) - float(e1_u)) / float(e1_u),
+            "X_max_abs_diff": float((new_s.X - new_u.X).abs().max()),
+        }
+        del x, vis, state, new_s, new_u
+    finally:
+        dist.destroy_process_group()
+
+    # 5b and 5c on two ranks, each a process
+    t0 = time.perf_counter()
+    ranks = launch_sharded_ranks(args)
+    launcher_wall = time.perf_counter() - t0
+    recs = [r["records"]["chunked"] for r in ranks]
+    e_b = [r["reprojection_error"] for r in recs]
+    rec_b = {
+        "ranks": recs, "launcher_wall_s": launcher_wall,
+        "transport": "gloo through the host, two ranks on one card",
+        "E_rel_diff_vs_5a": abs(e_b[0] - rec_a["reprojection_error"]) / rec_a["reprojection_error"],
+        "X_max_abs_diff_vs_5a": max_abs_diff(ranks[0]["chunked_X"], state_a[0]),
+        "K_max_abs_diff_vs_5a": max_abs_diff(ranks[0]["chunked_K"], state_a[1]),
+        "R_max_abs_diff_vs_5a": max_abs_diff(ranks[0]["chunked_R"], state_a[2]),
+        "t_max_abs_diff_vs_5a": max_abs_diff(ranks[0]["chunked_t"], state_a[3]),
+        "ranks_equal": all(np.array_equal(ranks[0][k], r[k]) for r in ranks[1:]
+                           for k in ranks[0] if k != "records"),
+        "syrk_lower_launches_per_rank": [r["syrk_lower_launches"] for r in recs],
+        "allreduce_bytes_per_retry": [r["allreduce_bytes_per_retry"] for r in recs],
+        "allreduce_ms_per_retry": [r["allreduce_ms_per_retry"] for r in recs],
+        "peak_over_start_gb_per_rank": [r["peak_over_start_gb"] for r in recs],
+        "limits": {"E_rtol": SHARDED_E_RTOL_TWO_RANKS, "X_atol": SHARDED_X_ATOL,
+                   "K_R_t_atol": SHARDED_CAM_ATOL},
+    }
+    print("sharded_chunked_two_ranks " + json.dumps(rec_b), flush=True)
+    check(all(r["finite"] for r in recs), "5b: an output is not finite")
+    check(rec_b["ranks_equal"], "5b: the ranks returned different results")
+    check(all(r["syrk_lower_launches"] == r["retries"] * r["chunks_per_rank"] > 0
+              and r["syrk_acc_launches"] == 0 for r in recs),
+          f"5b: K1 launches {rec_b['syrk_lower_launches_per_rank']} != retries x chunks")
+    check(all(r["retries"] == rec_a["retries"]
+              and r["retries_last_segment"] == rec_a["retries_last_segment"] for r in recs),
+          f"5b: retries {[r['retries'] for r in recs]} != 5a's {rec_a['retries']}")
+    check(rec_b["E_rel_diff_vs_5a"] <= SHARDED_E_RTOL_TWO_RANKS,
+          f"5b: E differs from 5a's by {rec_b['E_rel_diff_vs_5a']:.3e}")
+    check(rec_b["X_max_abs_diff_vs_5a"] <= SHARDED_X_ATOL
+          and max(rec_b[f"{k}_max_abs_diff_vs_5a"] for k in "KRt") <= SHARDED_CAM_ATOL,
+          "5b: X, K, R or t off 5a's beyond the limits")
+
+    d_recs = [r["records"]["dense"] for r in ranks]
+    rec_c["two_ranks"] = {
+        "ranks": d_recs,
+        "E_rel_diff_vs_4c": abs(d_recs[0]["reprojection_error"] - dense_rec["reprojection_error"])
+        / dense_rec["reprojection_error"],
+        "X_max_abs_diff_vs_one_rank": max_abs_diff(ranks[0]["dense_X"], X_c),
+    }
+    print("sharded_dense " + json.dumps(rec_c), flush=True)
+    check(rec_c["finite"] and all(r["finite"] for r in d_recs), "5c: an output is not finite")
+    check(rec_c["E_rel_diff_vs_4c"] <= SHARDED_E_RTOL_ONE_RANK,
+          f"5c: E differs from 4c's by {rec_c['E_rel_diff_vs_4c']:.3e}")
+    check(all(r["reprojection_error"] < dense_rec["start_E"] for r in d_recs),
+          "5c: the two-rank E is not below the start")
+    check(rec_c["lm_step"]["E_after_rel_diff"] <= SHARDED_E_RTOL_ONE_RANK,
+          f"5c: sharded_lm_step's E differs by {rec_c['lm_step']['E_after_rel_diff']:.3e}")
+    check((rec_c["syrk_acc_launches"], rec_c["syrk_lower_launches"]) == (0, 0)
+          and all((r["syrk_acc_launches"], r["syrk_lower_launches"]) == (0, 0) for r in d_recs),
+          "5c: the dense sharded core launched a SYRK kernel")
+    return {
+        "syrk_acc": {"5a": rec_a["syrk_acc_launches"],
+                     "5b_per_rank": [r["syrk_acc_launches"] for r in recs],
+                     "5c": rec_c["syrk_acc_launches"],
+                     "5c_per_rank": [r["syrk_acc_launches"] for r in d_recs]},
+        "syrk_lower": {"5a": rec_a["syrk_lower_launches"],
+                       "5a_unsharded_4o": opencv_rec["syrk_lower_launches"],
+                       "5b_per_rank": rec_b["syrk_lower_launches_per_rank"],
+                       "5c": rec_c["syrk_lower_launches"],
+                       "5c_per_rank": [r["syrk_lower_launches"] for r in d_recs]},
+    }
 
 
 def distorted_streamed(torch, sy, x_host, truth, start_cams, s_cfg, full: bool,
@@ -2425,6 +2811,10 @@ def main() -> int:
     parser.add_argument("--sparse-points", type=int, default=1_000_000)
     parser.add_argument("--batched-scenes", type=int, default=256)
     parser.add_argument("--reps", type=int, default=20)
+    # one rank of phases 5b and 5c, started by the script itself
+    parser.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--sharded-port", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--sharded-out", default="", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -2432,6 +2822,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.sharded_rank is not None:
+        return sharded_rank(args)
     from mvrecon_tpu_torch.config import LMConfig, resolve_device
     from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
     from mvrecon_tpu_torch.models import bundle_adjustment as tba
@@ -2488,8 +2880,7 @@ def main() -> int:
     syrk_accumulate_check(torch, sy, 3 * CHUNK, 9 * VIEWS, seed=11)
 
     # 4. the pipeline at full width
-    config = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=args.ba_iters,
-                      accept_divisor=1.0, init_damping=3e-3, damping="nielsen")
+    config = north_star_config(LMConfig, args.ba_iters)
     warm, scene = north_star_scenes(torch, make_synthetic_scene, args.points)
     euclidean_reconstruction_large(warm.x, config=dataclasses.replace(config, max_iter=1),
                                    chunk_size=CHUNK)
@@ -2536,7 +2927,8 @@ def main() -> int:
     # 4n. the radial model through the fused build, and its covariance; 4o.
     # the OPENCV model through the non-fused build (K1)
     k2_distorted = distorted_chunked(torch, fs, sy, scene, config)
-    k1_opencv = nonfused_chunked(torch, fs, sy, scene, config)["syrk_lower_launches"]
+    opencv_rec = nonfused_chunked(torch, fs, sy, scene, config)
+    k1_opencv = opencv_rec["syrk_lower_launches"]
     # 4r. the other four families through the non-fused build (K1)
     family_chunked = {model: nonfused_chunked(torch, fs, sy, scene, config, model, k, 40 + i,
                                               f"{model}_chunked")
@@ -2684,6 +3076,11 @@ def main() -> int:
     check(dense_pipe["E_vs_noise_floor"] < 1.5,
           f"dense pipeline E / noise floor {dense_pipe['E_vs_noise_floor']:.3f}")
     check(p_launches == (0, 0), f"dense pipeline launched the SYRK kernels {p_launches}")
+
+    # 5a-5c. point-sharded BA: 4o's problem on one NCCL rank and on two
+    # ranks on the one card, 4c's through the dense sharded core
+    torch.cuda.empty_cache()
+    sharded_launches = sharded_phases(torch, fs, sy, args, config, opencv_rec, dense)
 
     # 4m. scripts/bench_bal.py's distorted problem through the dense core;
     # 4q. the same problem through each of the other four families, one
@@ -2893,6 +3290,7 @@ def main() -> int:
         "launches_robust_chunked": k2_robust, "launches_distorted_chunked": k2_distorted,
         "launches_sparse": sparse_launches(0),
         **cli_launches(0),
+        "launches_sharded": sharded_launches["syrk_acc"],
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
@@ -2915,6 +3313,7 @@ def main() -> int:
         "launches_bal": {m: r["syrk_lower_launches"] for m, r in bal_recs.items()},
         "launches_sparse": sparse_launches(1),
         **cli_launches(1),
+        "launches_sharded": sharded_launches["syrk_lower"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

@@ -33,7 +33,11 @@ Ported so far, on one device:
   ``perspective_camera_calibration``, ``utils``, ``minimum_spanning_tree``
   and ``visualization`` (matplotlib, imported only to draw).
 
-Not ported yet: the device meshes and the sharded cores (``parallel/``).
+Over several ranks (``runtime/distributed.py``: one process per device,
+NCCL between cards, gloo on the CPU): the meshes (``parallel/mesh.py``)
+and point-sharded BA through the dense and the chunked core
+(``parallel/sharded_ba.py``). Not ported yet: the sharded covariance,
+calibration, affine, 2D and sparse paths and the sharded pipelines.
 """
 
 __version__ = "0.1.0"

@@ -193,8 +193,8 @@ def _cmd_bal(args, out: dict, dev, dt) -> None:
     from .runtime import io
 
     if args.shard_points > 0:
-        raise NotImplementedError("bal --shard-points: the sharded cores are not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+        raise NotImplementedError("bal --shard-points: the point-sharded bal path is not "
+                                  "ported yet: ROADMAP queue 1 item 4d")
     if args.sparse:
         _cmd_bal_sparse(args, out, dev, dt)
         return

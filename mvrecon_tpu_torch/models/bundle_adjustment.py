@@ -36,8 +36,16 @@ a refit of the model (:func:`fit_distortion`: closed form, or the
 full-OPENCV alternation, or Gauss-Newton on the FOV angle) with the
 geometry LM. :func:`distort_points` and :func:`undistort_points` map
 image points through the model and back. Distortion is for one problem,
-not for lanes. The sharded (``axis_name``) variant and the ``solver`` hook
-are not ported yet and raise ``NotImplementedError``.
+not for lanes.
+
+Under ``axis_name`` (one problem whose points are split over the ranks of
+a mesh axis, ``parallel/sharded_ba.py``) every camera-side sum over points
+is all-reduced where the JAX package ``psum``s it (:func:`_psum`): E, d_F
+and matG of the derivative build, the Schur product and its rhs, the
+point side of the gain ratio, every trial E and the refit's normal
+terms. Every branch of the loop then reads only all-reduced or replicated
+values, so all ranks take it together. The ``solver`` hook is not ported
+yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -338,16 +346,34 @@ class _Derivs(NamedTuple):
     matG: torch.Tensor  # (..., F, 9, 9) camera blocks
 
 
+def _psum(v: torch.Tensor, axis_name: str | None) -> torch.Tensor:
+    """Sum over the ranks of the mesh axis ``axis_name`` (identity with
+    none), the counterpart of JAX's ``psum``: ``all_reduce`` on the
+    process group that the running sharded call bound to the name
+    (``parallel.mesh.bind_axes``); an unbound name raises ``ValueError``.
+    ``v`` is reduced in place, so callers pass a fresh result."""
+    if axis_name is None:
+        return v
+    from ..parallel.mesh import axis_group
+
+    group = axis_group(axis_name)
+    v = v.contiguous()
+    torch.distributed.all_reduce(v, group=group)
+    return v
+
+
 def _compute_derivs(state: BAState, x, vis, free, f0: float, dist=None,
-                    model: str | None = None):
+                    model: str | None = None, axis_name: str | None = None):
     """All first and second derivative blocks for one outer LM iteration,
     through the distortion model with ``dist``. Returns (derivs, current
     E). vis is (..., P, F), or a (P, 1) column that broadcasts; under a
     robust loss it carries the IRLS weights (:func:`_huber_weights`), and
-    E is the weighted one."""
+    E is the weighted one. With ``axis_name`` the camera-side sums (E,
+    d_F, matG) are all-reduced; the point-side blocks stay local."""
     d_P, d_F, matE, matF, matG, e_now = _chunk_blocks(state, state.X, x, vis, free, f0,
                                                       dist=dist, model=model)
-    return _Derivs(d_P=d_P, d_F=d_F, matE=matE, matF=matF.mul_(free), matG=matG), e_now
+    return _Derivs(d_P=d_P, d_F=_psum(d_F, axis_name), matE=matE, matF=matF.mul_(free),
+                   matG=_psum(matG, axis_name)), _psum(e_now, axis_name)
 
 
 def _damp(m: torch.Tensor, c) -> torch.Tensor:
@@ -411,27 +437,29 @@ def _camera_side_solve(derivs: _Derivs, matEc, matGc, free):
     return delta_xi * free, delta_x
 
 
-def _damped_solve(derivs: _Derivs, c, free):
+def _damped_solve(derivs: _Derivs, c, free, axis_name: str | None = None):
     """Solve the damped normal equations by the point-block Schur
-    complement, or from the camera side when 3P < 9F. Returns (delta_xi
-    (..., 9F), delta_X (..., P, 3)); gauge-fixed entries of delta_xi are
-    exactly zero."""
+    complement, or from the camera side when 3P < 9F and the points are
+    not sharded. Returns (delta_xi (..., 9F), delta_X (..., P, 3));
+    gauge-fixed entries of delta_xi are exactly zero. With ``axis_name``
+    the Schur product and its rhs are all-reduced, and every rank solves
+    the same (9F, 9F) system."""
     lead = derivs.matE.shape[:-3]
     npts = derivs.matE.shape[-3]
     nf9 = derivs.matF.shape[-1]
     matEc = _damp(derivs.matE, c)
     matGc = _damp(derivs.matG, c)
-    if npts * 3 < nf9:
+    if axis_name is None and npts * 3 < nf9:
         return _camera_side_solve(derivs, matEc, matGc, free)
 
     einv = inv3x3(matEc)  # (..., P, 3, 3)
     einv_f = torch.einsum("...pxy,...pym->...pxm", einv, derivs.matF)  # (..., P, 3, 9F)
     # A = blockdiag(Gc) - sum_p F^T Einv F as one (9F, 3P) x (3P, 9F) product
     flat = lead + (npts * 3, nf9)
-    schur = derivs.matF.view(flat).transpose(-1, -2) @ einv_f.view(flat)
+    schur = _psum(derivs.matF.view(flat).transpose(-1, -2) @ einv_f.view(flat), axis_name)
     a = _reduced_camera_system(schur, matGc, free)
     del schur
-    b = torch.einsum("...pxm,...px->...m", einv_f, derivs.d_P) - derivs.d_F
+    b = _psum(torch.einsum("...pxm,...px->...m", einv_f, derivs.d_P), axis_name) - derivs.d_F
     del einv_f
     delta_xi = _chol_solve(a, b) * free
 
@@ -440,16 +468,19 @@ def _damped_solve(derivs: _Derivs, c, free):
     return delta_xi, delta_x
 
 
-def _predicted_reduction(derivs: _Derivs, delta_xi, delta_x, c) -> torch.Tensor:
+def _predicted_reduction(derivs: _Derivs, delta_xi, delta_x, c,
+                         axis_name: str | None = None) -> torch.Tensor:
     """Predicted decrease of the damped quadratic model,
     1/2 (c d^T D d - g^T d) with D = diag(H): the denominator of the
-    Nielsen gain ratio, per lane."""
+    Nielsen gain ratio, per lane; its point side all-reduced with
+    ``axis_name``."""
     diag_e = torch.diagonal(derivs.matE, dim1=-2, dim2=-1)  # (..., P, 3)
     diag_g = torch.diagonal(derivs.matG, dim1=-2, dim2=-1)  # (..., F, 9)
     diag_g = diag_g.reshape(diag_g.shape[:-2] + (-1,))
-    dDd = (torch.sum(delta_x * diag_e * delta_x, dim=(-2, -1))
+    dDd = (_psum(torch.sum(delta_x * diag_e * delta_x, dim=(-2, -1)), axis_name)
            + torch.sum(delta_xi * diag_g * delta_xi, dim=-1))
-    g_d = torch.sum(derivs.d_P * delta_x, dim=(-2, -1)) + torch.sum(derivs.d_F * delta_xi, dim=-1)
+    g_d = (_psum(torch.sum(derivs.d_P * delta_x, dim=(-2, -1)), axis_name)
+           + torch.sum(derivs.d_F * delta_xi, dim=-1))
     return 0.5 * (c * dDd - g_d)
 
 
@@ -475,14 +506,15 @@ def _residuals(state: BAState, x, vis, f0: float, dist=None, model: str | None =
 
 
 def _state_error(state: BAState, x, vis, f0: float, dist=None,
-                 model: str | None = None) -> torch.Tensor:
+                 model: str | None = None, axis_name: str | None = None) -> torch.Tensor:
     """Reprojection error E of ``state`` over the observations x
-    (..., P, F, 2), per lane; through the distortion model with ``dist``."""
+    (..., P, F, 2), per lane; through the distortion model with ``dist``;
+    all-reduced with ``axis_name``."""
     if dist is None:
         _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
-        return reprojection_error(x, p, q, r, vis, f0)
+        return _psum(reprojection_error(x, p, q, r, vis, f0), axis_name)
     res_p, res_q = _residuals(state, x, vis, f0, dist, model)
-    return torch.sum(vis * (res_p**2 + res_q**2), dim=(-2, -1))
+    return _psum(torch.sum(vis * (res_p**2 + res_q**2), dim=(-2, -1)), axis_name)
 
 
 ROBUST_LOSSES = ("huber", "cauchy", "soft_l1", "arctan")
@@ -888,16 +920,14 @@ def fit_distortion(state: BAState, x, vis, f0: float, shared: bool = False,
     pass is a sum over points (:func:`_refit_rounds`). ``shared=True``
     ties the parameters across the cameras: the per-camera terms sum into
     one system. A camera whose system is degenerate gets zeros (a FOV or
-    full-OPENCV camera keeps its current values). ``axis_name`` (the
-    sharded refit) is not ported and raises ``NotImplementedError``."""
-    if axis_name is not None:
-        raise NotImplementedError("the sharded cores are not ported yet")
+    full-OPENCV camera keeps its current values). With ``axis_name`` each
+    pass's terms are all-reduced before its solve."""
     if model is None:
         model = "opencv" if tangential else "radial"
     _, p, q, r = calc_pqr(state.X, build_K(state.f, state.u, f0), state.R, state.t)
     cur = default_distortion(model, state.f.shape[-1], x.dtype, x.device) if dist is None else dist
     for round_ in _refit_rounds(model):
-        terms = _refit_terms(state, p, q, r, x, vis, f0, model, cur, round_)
+        terms = _psum(_refit_terms(state, p, q, r, x, vis, f0, model, cur, round_), axis_name)
         cur = _refit_solve(terms, cur, model, round_, shared)
     return cur
 
@@ -1252,15 +1282,14 @@ def undistort_points(x: torch.Tensor, f: torch.Tensor, u: torch.Tensor | None = 
                        dim=-1)
 
 
-def _check_ported(config: LMConfig, axis_name=None, dist=None, solver=None) -> str:
-    """Raise ``NotImplementedError`` for the options whose code is not
-    ported yet: the sharded cores and the solver hook. An unknown loss or
-    distortion-model name or a column count that does not fit the model
-    raises ``ValueError``. Returns the resolved model name."""
-    if axis_name is not None:
-        raise NotImplementedError("the sharded cores are not ported yet")
+def _check_ported(config: LMConfig, dist=None, solver=None) -> str:
+    """Raise ``NotImplementedError`` for the solver hook, whose code is not
+    ported yet. An unknown loss or distortion-model name or a column count
+    that does not fit the model raises ``ValueError``. Returns the
+    resolved model name."""
     if solver is not None:
-        raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet")
+        raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet: "
+                                  "it comes with sharded_ba_2d, ROADMAP queue 1 item 4d")
     model = resolve_distortion_model(dist, config.distortion_model)
     resolve_robust(config.robust)
     return model
@@ -1288,15 +1317,13 @@ def lm_step(x, state: BAState, vis, free, f0: float, c, axis_name=None, dist=Non
     """One damped Gauss-Newton/LM step: derivatives -> Schur solve ->
     update -> new error, through the distortion ``dist`` (held fixed; the
     model from its columns unless ``distortion_model`` names it). Returns
-    (new_state, error_before, error_after). ``axis_name`` (the sharded
-    step) is not ported and raises ``NotImplementedError``."""
-    if axis_name is not None:
-        raise NotImplementedError("the sharded cores are not ported yet")
+    (new_state, error_before, error_after). With ``axis_name`` the points
+    are this rank's shard and the camera-side sums are all-reduced."""
     model = resolve_distortion_model(dist, distortion_model)
-    derivs, e0 = _compute_derivs(state, x, vis, free, f0, dist, model)
-    delta_xi, delta_x = _damped_solve(derivs, c, free)
+    derivs, e0 = _compute_derivs(state, x, vis, free, f0, dist, model, axis_name)
+    delta_xi, delta_x = _damped_solve(derivs, c, free, axis_name)
     new = _apply_update(state, delta_xi, delta_x)
-    return new, e0, _state_error(new, x, vis, f0, dist, model)
+    return new, e0, _state_error(new, x, vis, f0, dist, model, axis_name)
 
 
 def _lm_damping(config: LMConfig, accepted, c, nu, e_prev, e_trial, pred):
@@ -1329,7 +1356,8 @@ class LMOutcome(NamedTuple):
 
 
 def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=None,
-             init_nu=None, dist=None, model: str | None = None) -> LMOutcome:
+             init_nu=None, dist=None, model: str | None = None,
+             axis_name: str | None = None) -> LMOutcome:
     """The Levenberg–Marquardt loop over lanes: problems stacked along the
     leading dimensions of ``state0`` (none for one problem), each with its
     own damping, accept decisions and stop, as ``vmap`` runs the JAX
@@ -1359,13 +1387,20 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
     Where the JAX loop would run a lane whose E is NaN to ``max_iter``
     (``NaN <= delta_tol`` is false), this one stops it after its first
     iteration, which accepts nothing; a finite lane runs the same
-    iterations in both."""
+    iterations in both.
+
+    With ``axis_name`` (one problem, no lanes: ``ValueError`` otherwise)
+    x, vis and state0.X are this rank's shard of the points; every E and
+    camera-side sum is all-reduced, so the host reads give every rank the
+    same answer and all ranks retry and stop together."""
     dt, dev = x.dtype, x.device
     lanes = state0.f.shape[:-1]
+    if axis_name is not None and lanes:
+        raise ValueError("the sharded core takes one problem, not lanes")
     nielsen = config.damping == "nielsen"
     robust_kind = resolve_robust(config.robust)
     state = state0
-    e_prev = _state_error(state0, x, vis, f0, dist, model)
+    e_prev = _state_error(state0, x, vis, f0, dist, model, axis_name)
     run = torch.ones(lanes, dtype=torch.bool, device=dev)  # lanes still iterating
     history = [(state0, e_prev, run)] if config.record_log else None
     c = as_tensor(config.init_damping if init_c is None else init_c, dev, dt).expand(lanes)
@@ -1377,7 +1412,7 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
         if robust_kind is not None:
             vis_it = _huber_weights(state, x, vis, f0, config.huber_delta, robust_kind, dist,
                                     model)
-        derivs, e_w = _compute_derivs(state, x, vis_it, free, f0, dist, model)
+        derivs, e_w = _compute_derivs(state, x, vis_it, free, f0, dist, model, axis_name)
         # the accept and stop baseline: the E under this iteration's weights
         e_base = e_prev if robust_kind is None else keep(run, e_w, e_prev)
         accepted = ~run  # finished lanes take no trial
@@ -1385,11 +1420,12 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
         run_next, iterating = torch.zeros_like(run), False  # no retry: every lane stops
         for _ in range(config.max_inner_retries):
             retry = ~accepted
-            delta_xi, delta_x = _damped_solve(derivs, c, free)
+            delta_xi, delta_x = _damped_solve(derivs, c, free, axis_name)
             cand = _apply_update(state, delta_xi, delta_x)
-            e_cand = _state_error(cand, x, vis_it, f0, dist, model)
+            e_cand = _state_error(cand, x, vis_it, f0, dist, model, axis_name)
             acc_t = e_cand <= e_base
-            pred = _predicted_reduction(derivs, delta_xi, delta_x, c) if nielsen else None
+            pred = (_predicted_reduction(derivs, delta_xi, delta_x, c, axis_name) if nielsen
+                    else None)
             c, nu = keep_all(retry, _lm_damping(config, acc_t, c, nu, e_base, e_cand, pred),
                              (c, nu))
             trial = keep_all(retry, cand, trial)
@@ -1435,9 +1471,9 @@ def lm_optimize(x, state0: BAState, vis, free, f0: float, config: LMConfig, axis
     Returns (state, error, c, nu, n_iter, log): with ``config.record_log``
     the log holds "points", "basis", "pos" and "reprojection_error" stacked
     over max_iter + 1 rows (zero past the last iteration), else None."""
-    model = _check_ported(config, axis_name, dist, solver)
+    model = _check_ported(config, dist, solver)
     out = lm_lanes(x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu, dist=dist,
-                   model=model)
+                   model=model, axis_name=axis_name)
     return out.state, out.error, out.c, out.nu, out.n_iter, out.log
 
 

@@ -34,9 +34,15 @@ accept test, the Nielsen gain ratio and the stop test compare with the
 weighted E that build returns. ``distortion_rounds`` alternates the refit
 (``fit_distortion_chunked``: one pass over the chunks for the models linear
 in their parameters, eight for the full-OPENCV alternation, six for the FOV
-Gauss-Newton steps) with LM segments, as the dense core does. The sharded
-(``axis_name``) variant is not ported yet and raises
-``NotImplementedError``.
+Gauss-Newton steps) with LM segments, as the dense core does.
+
+Under ``axis_name`` (``parallel/sharded_ba.py``: this rank's shard of the
+points, chunked) the non-fused build runs whatever the model, as in the
+JAX package, and the sums over points are all-reduced where JAX ``psum``s
+them: the packed K1 accumulator before its one mirror, b_p, matG, d_F
+and E after each rank's compensated sum in the build; the trial E and
+the gain ratio's point side after the back-substitution; the first E;
+and each refit pass's terms.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from .bundle_adjustment import (
     _lm_damping,
     _prepare_distortion,
     _prepare_problem,
+    _psum,
     _reduced_camera_system,
     _refit_rounds,
     _refit_solve,
@@ -123,12 +130,13 @@ def _build_system_fused(cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None,
 
 
 def _build_system(cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None,
-                  robust_kind="huber", dist=None, model=None):
+                  robust_kind="huber", dist=None, model=None, axis_name=None):
     """Non-fused build over the chunks, camera-major: per chunk the blocks
     (IRLS-weighted with ``huber_delta``, through the distortion model with
     ``dist``), Y = L⁻¹F and yd = L⁻¹ d_P (``_damped_schur_factor``), and
     K1's lower tiles of YᵀY added into one accumulator; one mirror after
-    the chunks (``finish_syrk_accumulator``).
+    the chunks (``finish_syrk_accumulator``). With ``axis_name`` the
+    packed accumulator, b_p, matG, d_F and E are all-reduced first.
 
     Returns (A (9F, 9F) damped, with identity rows on the gauge-fixed
     parameters, b (9F,), E_now (weighted with ``huber_delta``),
@@ -154,23 +162,25 @@ def _build_system(cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta=None,
         g = g + matG
         d_f = d_f + d_F
         e_acc = _kadd(e_acc, e_chunk)
-    schur = finish_syrk_accumulator(acc, nf9)
+    schur = finish_syrk_accumulator(_psum(acc, axis_name), nf9)
     del acc
+    b_p, g, d_f = (_psum(v, axis_name) for v in (b_p, g, d_f))
     a = _reduced_camera_system(schur, _damp(g, c), free)
     diag_g = torch.diagonal(g, dim1=-2, dim2=-1).reshape(-1)  # (9F,) undamped
-    return a, b_p - d_f, e_acc[0], (diag_g, d_f)
+    return a, b_p - d_f, _psum(e_acc[0], axis_name), (diag_g, d_f)
 
 
 def _backsub_and_trial(cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi,
                        huber_delta=None, robust_kind="huber", dist=None, model=None,
-                       fused=True):
+                       fused=True, axis_name=None):
     """Per chunk: back-substitute the point update at the current state and
     sum the trial error under the updated cameras (under the current
     state's IRLS weights with ``huber_delta``, through the distortion model
     with ``dist``), from the type-major planes (``fused``) or the
     camera-major factors.
 
-    Returns (X_new chunks, E_trial, dDd_pts, g_d_pts)."""
+    Returns (X_new chunks, E_trial, dDd_pts, g_d_pts), the three sums
+    all-reduced with ``axis_name``."""
     zero = torch.zeros((), dtype=x_ch[0].dtype, device=x_ch[0].device)
     e_acc = dDd_acc = gd_acc = (zero, zero)
     X_new = []
@@ -185,7 +195,7 @@ def _backsub_and_trial(cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi
                                                    model)
         X_new.append(X_n)
         e_acc, dDd_acc, gd_acc = _kadd(e_acc, e_c), _kadd(dDd_acc, dDd_c), _kadd(gd_acc, gd_c)
-    return X_new, e_acc[0], dDd_acc[0], gd_acc[0]
+    return X_new, *(_psum(acc[0], axis_name) for acc in (e_acc, dDd_acc, gd_acc))
 
 
 def _solve_cam(a: torch.Tensor, b: torch.Tensor, jacobi_scaling: bool) -> torch.Tensor:
@@ -214,12 +224,13 @@ def lm_optimize_chunked(
     """Chunk-streamed LM with the dense core's protocol, through the
     distortion model ``dist`` (held fixed) when given. The fused build
     runs the pinhole and the radial model, the non-fused build (K1 on the
-    card) every other family. Returns (state, error, c, nu, n_iter,
-    total_solver_retries, log): the log is ``{"reprojection_error":
-    (max_iter + 1,)}`` with ``config.record_log`` (zero past the last
-    iteration), else None."""
-    model = _check_ported(config, axis_name, dist)
-    fused = dist is None or model == "radial"
+    card) every other family, and every model under ``axis_name`` (x, vis
+    and state0.X are then this rank's shard; JAX fuses only unsharded).
+    Returns (state, error, c, nu, n_iter, total_solver_retries, log): the
+    log is ``{"reprojection_error": (max_iter + 1,)}`` with
+    ``config.record_log`` (zero past the last iteration), else None."""
+    model = _check_ported(config, dist)
+    fused = axis_name is None and (dist is None or model == "radial")
     npts = x.shape[0]
     dt = x.dtype
     dev = x.device
@@ -237,6 +248,7 @@ def lm_optimize_chunked(
     e_prev = torch.zeros((), dtype=dt, device=dev)
     for X_c, x_c, vis_c in zip(X_ch, x_ch, vis_ch):
         e_prev = e_prev + _state_error(cam._replace(X=X_c), x_c, vis_c, f0, dist, model)
+    e_prev = _psum(e_prev, axis_name)
 
     log_e = [e_prev] if config.record_log else None
     nielsen = config.damping == "nielsen"
@@ -261,8 +273,8 @@ def lm_optimize_chunked(
                 delta_xi = type_major_to_camera_major(delta_tm, nf, f_pad)
             else:
                 a, b, e_w, (diag_g, d_f) = _build_system(
-                    cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta, robust_kind, dist, model
-                )
+                    cam, X_ch, x_ch, vis_ch, free, f0, c, huber_delta, robust_kind, dist, model,
+                    axis_name)
                 delta_xi = _solve_cam(a, b, config.jacobi_scaling) * free
             del a, b
             if huber_delta is not None:
@@ -270,7 +282,7 @@ def lm_optimize_chunked(
             trial_cam = _apply_update(cam, delta_xi, torch.zeros((0, 3), dtype=dt, device=dev))
             X_trial, e_trial, dDd_pts, gd_pts = _backsub_and_trial(
                 cam, trial_cam, X_ch, x_ch, vis_ch, free, f0, c, delta_xi, huber_delta,
-                robust_kind, dist, model, fused
+                robust_kind, dist, model, fused, axis_name
             )
             acc_t = e_trial <= e_base
             pred = None
@@ -380,10 +392,8 @@ def fit_distortion_chunked(state: BAState, x, vis, f0: float, chunk_size: int,
     model ``dist``. The model follows ``dist``'s columns unless ``model``
     names it or ``tangential`` picks OPENCV (True) or radial (False). x
     (P, F, 2) and vis (P, F) or (P, 1) are tensors on one device; the tail
-    chunk is padded with zero visibility. ``axis_name`` (the sharded
-    refit) is not ported and raises ``NotImplementedError``."""
-    if axis_name is not None:
-        raise NotImplementedError("the sharded cores are not ported yet")
+    chunk is padded with zero visibility. With ``axis_name`` each pass's
+    terms are all-reduced before its solve."""
     if model is None:
         if tangential is None:
             model = resolve_distortion_model(dist, "auto")
@@ -405,5 +415,5 @@ def fit_distortion_chunked(state: BAState, x, vis, f0: float, chunk_size: int,
         for X_c, x_c, vis_c in chunks:
             terms = terms + _chunk_distortion_terms(cam, X_c, x_c, vis_c, f0, dist, model,
                                                     huber_delta, robust_kind, cur, round_)
-        cur = _refit_solve(terms, cur, model, round_, shared)
+        cur = _refit_solve(_psum(terms, axis_name), cur, model, round_, shared)
     return cur

@@ -63,7 +63,8 @@ observations; ``matvec_chunk`` chunks the CG matvec's transients too.
 ``factor_mode="recompute"`` stores no factor rows: every pass recomputes
 them chunk by chunk from the O(P + F) state.
 
-The sharded variant (``parallel/sharded_ba_sparse.py``) is not ported.
+The sharded variant (``parallel/sharded_ba_sparse.py``, ``axis_name``) is
+not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -670,7 +671,10 @@ def lm_optimize_sparse(
     ``timer`` (``runtime.profiling.EventTimer``) records the spans "build",
     "cg", "matvec" and "trial". ``plans`` caches the chunk plans across
     calls on one list."""
-    model = _check_ported(config, axis_name, dist)
+    if axis_name is not None:
+        raise NotImplementedError("the sparse core's axis_name (sharded_ba_sparse) is not "
+                                  "ported yet: ROADMAP queue 1 item 4d")
+    model = _check_ported(config, dist)
     if factor_mode not in ("stored", "recompute"):
         raise ValueError(f"unknown factor_mode: {factor_mode!r}")
     remat = factor_mode == "recompute"

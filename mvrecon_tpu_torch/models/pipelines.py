@@ -162,7 +162,8 @@ def euclidean_reconstruction_large(
     is x's. ``timer`` records the wall of each stage. The sharded
     calibration (``mesh``) is not ported yet and raises."""
     if mesh is not None:
-        raise NotImplementedError("the sharded calibration is not ported yet")
+        raise NotImplementedError("euclidean_reconstruction_large(mesh=...): the sharded "
+                                  "calibration is not ported yet: ROADMAP queue 1 item 4b")
     dev = resolve_device(device)
     x = as_tensor(x, dev, result_dtype(x))
 

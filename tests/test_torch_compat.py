@@ -136,7 +136,8 @@ def _states(problem):
 @pytest.mark.parametrize("form", ["keyword", "positional"])
 def test_lm_step_signature_matches_jax(problem, form):
     """A distorted LM step through JAX's argument names and positions
-    equals JAX's; the pinhole step too; a sharded ``axis_name`` raises."""
+    equals JAX's; the pinhole step too; an ``axis_name`` that no sharded
+    call binds raises ``ValueError``."""
     x, _, _, _, _, dist, vis = problem
     jstate, tstate = _states(problem)
     free_np = np.array(jba.gauge_mask(5, AXIS, jnp.float64))
@@ -161,7 +162,7 @@ def test_lm_step_signature_matches_jax(problem, form):
         _close(got[2], want[2], 1e-8)
         errors.append(float(got[1]))
     assert errors[0] != pytest.approx(errors[1], rel=1e-3)  # the model was applied
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not bound"):
         tba.lm_step(*targs, "points")
 
 
@@ -190,9 +191,9 @@ def test_fit_distortion_signatures_match_jax(problem, form):
     assert got.shape == got_c.shape == (5, 4)
     _close(got, want, 1e-8)
     _close(got_c, want_c, 1e-8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not bound"):
         tba.fit_distortion(tstate, tx, tv, 1.0, False, "points")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not bound"):
         tbc.fit_distortion_chunked(tstate, tx, tv, 1.0, 16, axis_name="points")
 
 

@@ -11,8 +11,8 @@ JAX package on the CPU:
   thin prism, dense and with ``--chunk-size``, with ``--covariance`` and
   ``--optimize-distortion 1``, and the same undistorted pinhole model; on a
   BAL file (radial) too;
-- ``--sparse`` and ``--shard-points`` raise ``NotImplementedError`` naming
-  the ROADMAP items that port them.
+- ``--sparse`` runs, and ``--shard-points`` raises ``NotImplementedError``
+  naming the ROADMAP item that ports it.
 """
 
 import json
@@ -250,5 +250,5 @@ def test_bal_unported_options_raise(tmp_path, capsys):
     assert rec["ba_iterations"] <= 2 and np.isfinite(rec["reprojection_error"])
     # the sharded cores are not: --shard-points raises, with --sparse too
     for extra in ([], ["--sparse"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 4d"):
             tmain(["bal", path, "--shard-points", "2", "--device", "cpu"] + extra)

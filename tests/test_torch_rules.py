@@ -4,7 +4,7 @@
   the port's scripts that run on the card, imports JAX or the JAX package (checked on the AST: the interpreter may have
   JAX loaded already, so ``sys.modules`` proves nothing);
 - entry points run on the card by default and raise without one, the
-  ``bal`` subcommand too;
+  ``bal`` subcommand, the sharded cores and ``initialize`` too;
 - the port's ``runtime/io.py`` imports numpy and the standard library
   only;
 - the kernel wrappers ``syrk_acc`` and ``syrk_lower`` have no ``try``
@@ -93,6 +93,40 @@ def test_entry_points_default_to_the_card(monkeypatch):
     for fn in (ba_covariance, ba_covariance_chunked, ba_covariance_streamed):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(x.transpose(1, 0, 2), *start)
+
+
+def test_sharded_entry_points_default_to_the_card(monkeypatch):
+    """``initialize`` and the sharded cores run on the card unless asked,
+    and raise without one (the mesh over a fake one-rank process group)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from mvrecon_tpu_torch.models.bundle_adjustment import BAState
+    from mvrecon_tpu_torch.parallel import (
+        make_mesh,
+        sharded_bundle_adjust,
+        sharded_bundle_adjust_chunked,
+        sharded_lm_step,
+    )
+    from mvrecon_tpu_torch.runtime.distributed import initialize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize("localhost:1", 1, 0)
+    x = np.zeros((20, 4, 2))
+    start = (np.zeros((20, 3)), np.zeros((4, 3, 3)), np.zeros((4, 3, 3)), np.zeros((4, 3)))
+    state = BAState(*(torch.zeros(s) for s in ((20, 3), (4,), (4, 2), (4, 3), (4, 3, 3))))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"points": 1})
+        calls = [lambda: sharded_bundle_adjust(mesh, x, *start),
+                 lambda: sharded_bundle_adjust_chunked(mesh, x, *start),
+                 lambda: sharded_lm_step(mesh, x, state, np.ones((20, 4)), np.ones(36), 1e-3)]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    finally:
+        dist.destroy_process_group()
 
 
 def _function(tree, name):
