@@ -156,6 +156,26 @@ Phases, each of which stops the script with a non-zero exit on failure:
    within 1e-6 of 4c's) and on the two ranks (below the start E), and one
    ``sharded_lm_step`` against ``lm_step`` (E within 1e-6); no K1 or K2
    launch;
+5f. ``sharded_ba_covariance`` of 5c's result against ``ba_covariance`` on
+   the same state, at one rank and on the two: float64 blocks within 2e-6
+   of the largest entry; in float64 and float32 NaN exactly where the
+   unsharded blocks have it (F10), the same n_obs and sqrt(sigma^2) within
+   5 % of sigma; each wall; the float32 blocks' gap is printed, not held
+   (F10);
+5e. ``sharded_euclidean_reconstruction`` on 4d's observations at one rank
+   and two: status 0, E / floor < 1.5, E within 3e-4 of 4d's, no launch;
+5d. ``euclidean_reconstruction_large(mesh=)`` on phase 4's scene at one
+   rank and two: the calibration sharded, the chunked BA whole on every
+   rank (K2 launches == retries x chunks a rank); status 0, E / floor <
+   1.5, E within 1e-4 of phase 4's, the ranks equal; the calibration's
+   wall, depth iterations, Gram all-reduce (36 MB at 1000 views) bytes and
+   ms an iteration, peak memory;
+5g. the commands with ``--shard-points 1`` and no launcher, in process,
+   against the same commands unsharded (E within 1e-6, the same launches,
+   ``shard_points`` in the record): ``euclidean --float64`` (after 4x),
+   4x's float64 ``reconstruct`` with ``--covariance`` (in 4x) and 4t's
+   fisheye ``bal --chunk-size 768`` (in 4t; K1 launches == retries x
+   chunks);
 5. the pipelines and the BA cores on small scenes on the card and on the
    CPU (plain versions), which must agree, the streamed core on the card
    with prefetch 0 and 2, which must agree bit for bit, both batched
@@ -170,10 +190,11 @@ Phases, each of which stops the script with a non-zero exit on failure:
 6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
-``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r, 4e, 4y's chunked run and
-5a-5b (``--ba-iters`` sets the BA iterations of 4 and 4e),
+``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r, 4e, 4y's chunked run,
+5a-5b and 5d (``--ba-iters`` sets the BA iterations of 4, 4e and 5d),
 ``--streamed-points`` phases 4b, 4l, 4j, 4p and 4s, ``--dense-points``
-phases 4c, 4d, 4k's second run, 4x, 4y's dense runs and 5c, ``--bal-points`` phases 4m, 4q, 4t, 4w and 4z's
+phases 4c, 4d, 4k's second run, 4x, 4y's dense runs, 5c, 5e and 5f,
+``--bal-points`` phases 4m, 4q, 4t, 4w and 4z's
 ``BundleAdjuster`` (below 20k points it may take the dense core, and the
 launch check follows its choice), ``--sparse-points`` 4u and 4v, and
 ``--batched-scenes`` phases 4f-4h for a quick run; the views and the
@@ -183,6 +204,7 @@ chunks stay the main paths', so the kernel checks keep their shapes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -300,6 +322,22 @@ SHARDED_E_RTOL_ONE_RANK = 1e-6
 SHARDED_E_RTOL_TWO_RANKS = 1e-5
 SHARDED_X_ATOL = NOISE
 SHARDED_CAM_ATOL = 1e-3
+# Phases 5d-5g. 5d's and 5e's calibration eighs the all-reduced (3F, 3F)
+# Gram where phases 4 and 4d take the low-rank depth eigensolve, so BA
+# starts from another float32 calibration, and at two ranks the sums
+# reorder too. On the H100 (a probe of 4, 4c, 4d and 5a-5g) 5d's E came
+# 9.8e-8 (one rank) and 9.8e-7 (two) from phase 4's, 5e's 3.0e-5 and
+# 1.5e-6 from 4d's; the limits are a hundred and ten times the larger (at
+# 2,000 points x 16 views on the CPU 5d's two ranks part by 6e-5: the
+# farther BA is from converging, the more its start shows). 5f's float64
+# blocks differ from the unsharded ones by the order of the Schur sum
+# alone (1.5e-9 of the largest entry at two ranks); JAX's bound is 2e-6.
+# 5g's commands at one rank (float64 for euclidean and reconstruct) hold
+# E to 1e-6 of their unsharded runs (equal to the digit in the probe).
+SHARDED_LARGE_E_RTOL = 1e-4
+SHARDED_PIPELINE_E_RTOL = 3e-4
+SHARDED_COV_RTOL = 2e-6
+SHARDED_CLI_E_RTOL = 1e-6
 BAL_WINDOW = 20  # 4m, scripts/bench_bal.py: each point seen by 20 consecutive of 100 views
 BAL_OUTLIER_SHARE = 0.02  # ... 2 % of the visible observations moved by 0.5 N(0, 1)
 BAL_OUTLIER_SCALE = 0.5
@@ -1499,6 +1537,11 @@ def north_star_config(LMConfig, ba_iters: int):
                     init_damping=3e-3, damping="nielsen")
 
 
+def dense_config(LMConfig):
+    """Phase 4c's schedule (``bench.py::bench_headline``): 10 iterations."""
+    return LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=10)
+
+
 def nonfused_problem_host(torch, tba, scene, config, model: str = "opencv",
                           truth_k=OPENCV_TRUTH, seed: int = 32):
     """Phase 4o's problem with its observations in host memory, rendered
@@ -1524,15 +1567,15 @@ def dense_problem_host(torch, make_synthetic_scene, dense_points: int):
     return perturbed_start(scene, seed=3, sigma=0.05)
 
 
-def sharded_run(torch, fs, sy, fn, mesh, problem, **kw) -> tuple[dict, object]:
-    """``fn(mesh, *problem, **kw)`` (a sharded BA entry point) with its K1
-    and K2 launches, its wall (host clock ending in a sync), this rank's
-    peak device memory, and its all-reduces: calls, bytes and time, each
-    timed on the host between two syncs (the first call of a process
-    group also sets up its communicator). Returns (record, result)."""
+@contextlib.contextmanager
+def timed_allreduces(torch):
+    """A context in which every ``torch.distributed.all_reduce`` is timed
+    on the host between two syncs (the first call of a process group also
+    sets up its communicator); it yields the stats: calls, bytes, ms, the
+    first call's ms and each call's (elements, ms)."""
     import torch.distributed as dist
 
-    stats = {"calls": 0, "bytes": 0, "ms": 0.0, "first_ms": None}
+    stats = {"calls": 0, "bytes": 0, "ms": 0.0, "first_ms": None, "sizes": []}
     all_reduce = dist.all_reduce
 
     def timed_all_reduce(tensor, *args, **kwargs):
@@ -1545,21 +1588,33 @@ def sharded_run(torch, fs, sy, fn, mesh, problem, **kw) -> tuple[dict, object]:
         stats["first_ms"] = ms if stats["first_ms"] is None else stats["first_ms"]
         stats["calls"] += 1
         stats["bytes"] += tensor.numel() * tensor.element_size()
+        stats["sizes"].append((tensor.numel(), ms))
         return out
+
+    dist.all_reduce = timed_all_reduce
+    try:
+        yield stats
+    finally:
+        dist.all_reduce = all_reduce
+
+
+def sharded_run(torch, fs, sy, fn, mesh, problem, **kw) -> tuple[dict, object]:
+    """``fn(mesh, *problem, **kw)`` (a sharded BA entry point) with its K1
+    and K2 launches, its wall (host clock ending in a sync), this rank's
+    peak device memory, and its all-reduces (``timed_allreduces``): calls,
+    bytes and time. Returns (record, result)."""
+    import torch.distributed as dist
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start_bytes = torch.cuda.memory_allocated()
     reset_launch_counts(fs, sy)
-    dist.all_reduce = timed_all_reduce
-    try:
+    with timed_allreduces(torch) as stats:
         t0 = time.perf_counter()
         res = fn(mesh, *problem, axis="x-up_z-forward", **kw)
         err = float(res.error)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        dist.all_reduce = all_reduce
     launches = launch_counts(fs, sy)
     rec = {
         "ranks": dist.get_world_size(), "backend": dist.get_backend(), "wall_s": wall,
@@ -1585,22 +1640,17 @@ def per_retry(rec: dict, n_chunks: int) -> None:
     rec["allreduce_ms_per_retry"] = rec["allreduce_ms"] / rec["retries"]
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def sharded_rank(args) -> int:
-    """One of phases 5b's and 5c's two ranks, a process of its own on the
-    one card (``--sharded-rank``): it joins a two-rank group with gloo
-    named for CUDA tensors (NCCL takes one rank a card), draws 4o's and
-    4c's problems in host memory from their seeds, runs
+    """One of phases 5b-5f's two ranks, a process of its own on the one
+    card (``--sharded-rank``): it joins a two-rank group with gloo named
+    for CUDA tensors (NCCL takes one rank a card), draws 4o's and 4c's
+    problems in host memory from their seeds, runs
     ``sharded_bundle_adjust_chunked`` on the first and
-    ``sharded_bundle_adjust`` on the second, and writes its records and
-    results to ``--sharded-out``."""
+    ``sharded_bundle_adjust`` on the second (5b, 5c), the sharded
+    covariance of that result (5f), the sharded pipeline on 4c's
+    observations (5e) and the large pipeline with the mesh on phase 4's
+    scene (5d), and writes its records and results to
+    ``--sharded-out``."""
     import torch
     import torch.distributed as dist
 
@@ -1633,9 +1683,24 @@ def sharded_rank(args) -> int:
         d_rec, d_res = sharded_run(torch, fs, sy, sba.sharded_bundle_adjust, mesh,
                                    dense_problem_host(torch, make_synthetic_scene,
                                                       args.dense_points),
-                                   config=LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=10))
+                                   config=dense_config(LMConfig))
         out.update({f"dense_{k}": getattr(d_res, k).cpu().numpy() for k in ("X", "K", "R", "t")})
-        out["records"] = np.array(json.dumps({"chunked": rec, "dense": d_rec}))
+        d_prob = dense_problem_host(torch, make_synthetic_scene, args.dense_points)
+        # 5f on 5c's result; 5e on 4d's observations; 5d on phase 4's scene
+        cov_rec = sharded_covariance(torch, mesh, d_prob[0],
+                                     [out[f"dense_{k}"] for k in ("X", "K", "R", "t")])
+        del d_res
+        p_rec, out["pipeline_X"] = sharded_pipeline(torch, fs, sy, mesh,
+                                                    d_prob[0].transpose(1, 0, 2),
+                                                    dense_config(LMConfig))
+        del d_prob
+        torch.cuda.empty_cache()
+        _, scene = north_star_scenes(torch, make_synthetic_scene, args.points)
+        l_rec, out["large_X"] = sharded_large(torch, fs, sy, mesh, scene,
+                                              north_star_config(LMConfig, args.ba_iters))
+        del scene
+        out["records"] = np.array(json.dumps({"chunked": rec, "dense": d_rec, "covariance": cov_rec,
+                                              "pipeline": p_rec, "large": l_rec}))
         np.savez(f"{args.sharded_out}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -1649,6 +1714,8 @@ def launch_sharded_ranks(args) -> list[dict]:
     rank's arrays and records."""
     import shutil
     import tempfile
+
+    from mvrecon_tpu_torch.runtime.distributed import free_port
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     port = free_port()
@@ -1692,8 +1759,167 @@ def max_abs_diff(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
 
 
-def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dict) -> dict:
-    """Phases 5a-5c, point-sharded BA (``parallel/sharded_ba.py``):
+def sharded_large(torch, fs, sy, mesh, scene, config) -> tuple[dict, np.ndarray]:
+    """Phase 5d on this rank: ``euclidean_reconstruction_large(mesh=)`` on
+    phase 4's scene (on the card) and config. The calibration runs
+    sharded; the chunked BA (the fused build, K2) runs whole on every
+    rank. Its depth iterations are its Gram all-reduces, (3F)^2 values
+    each, less the factorization's one. Returns (record, X on the host)."""
+    import torch.distributed as dist
+
+    from mvrecon_tpu_torch.models.pipelines import euclidean_reconstruction_large
+    from mvrecon_tpu_torch.runtime.profiling import StageTimer
+
+    n_points = scene.X.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    reset_launch_counts(fs, sy)
+    timer = StageTimer()
+    with timed_allreduces(torch) as ar:
+        t0 = time.perf_counter()
+        res = euclidean_reconstruction_large(scene.x, config=config, chunk_size=CHUNK, mesh=mesh,
+                                             timer=timer)
+        err = float(res.error)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts(fs, sy)
+    gram_ms = [ms for numel, ms in ar["sizes"] if numel == (3 * VIEWS) ** 2]
+    depth_iters = len(gram_ms) - 1
+    floor = n_points * VIEWS * 2 * NOISE**2
+    rec = {
+        "ranks": dist.get_world_size(), "backend": dist.get_backend(), "points": n_points,
+        "views": VIEWS, "chunk": CHUNK, "wall_s": wall,
+        "calibration_s": timer.times["perspective_self_calibration"],
+        "ba_s": timer.times["bundle_adjustment"], "status": res.status,
+        "depth_iters": depth_iters, "ba_n_iter": res.n_iter,
+        "ba_solver_retries": res.ba_log["n_solver_retries"], "chunks": math.ceil(n_points / CHUNK),
+        "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+        "reprojection_error": err, "E_vs_noise_floor": err / floor,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_over_start_gb": (torch.cuda.max_memory_allocated() - start_bytes) / 1e9,
+        "gram_allreduce_bytes": (3 * VIEWS) ** 2 * 4, "gram_allreduce_ms": gram_ms,
+        "allreduce_calls": ar["calls"], "allreduce_bytes": ar["bytes"],
+        "allreduce_ms": ar["ms"], "allreduce_ms_first_call": ar["first_ms"],
+        "allreduce_bytes_per_depth_iter": ar["bytes"] / max(depth_iters, 1),
+        "allreduce_ms_per_depth_iter": ar["ms"] / max(depth_iters, 1),
+        "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+    }
+    return rec, res.X.cpu().numpy()
+
+
+def check_sharded_large(rec: dict, pipe: dict, name: str) -> None:
+    """5d's checks of one rank's record against phase 4's."""
+    rec["E_rel_diff_vs_4"] = (abs(rec["reprojection_error"] - pipe["reprojection_error"])
+                              / pipe["reprojection_error"])
+    check(rec["finite"] and rec["status"] == 0 and rec["depth_iters"] > 0,
+          f"{name}: status {rec['status']}, {rec['depth_iters']} depth iterations, finite "
+          f"{rec['finite']}")
+    check(rec["E_vs_noise_floor"] < 1.5, f"{name}: E / floor {rec['E_vs_noise_floor']:.4f}")
+    check(rec["E_rel_diff_vs_4"] <= SHARDED_LARGE_E_RTOL,
+          f"{name}: E differs from phase 4's by {rec['E_rel_diff_vs_4']:.3e}")
+    check(rec["syrk_acc_launches"] == rec["ba_solver_retries"] * rec["chunks"] > 0
+          and rec["syrk_lower_launches"] == 0,
+          f"{name}: K2 launches {rec['syrk_acc_launches']} != retries "
+          f"{rec['ba_solver_retries']} x chunks {rec['chunks']}, or K1 launched")
+
+
+def sharded_pipeline(torch, fs, sy, mesh, x_fp, config) -> tuple[dict, np.ndarray]:
+    """Phase 5e on this rank: ``sharded_euclidean_reconstruction`` of host
+    observations x_fp (F, P, 2) with ``config``. Returns (record, X)."""
+    import torch.distributed as dist
+
+    from mvrecon_tpu_torch.parallel.pipelines import sharded_euclidean_reconstruction
+    from mvrecon_tpu_torch.runtime.profiling import StageTimer
+
+    torch.cuda.synchronize()
+    reset_launch_counts(fs, sy)
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    res = sharded_euclidean_reconstruction(mesh, x_fp, config=config, timer=timer)
+    err = float(res.error)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(fs, sy)
+    rec = {"ranks": dist.get_world_size(), "points": x_fp.shape[1], "views": x_fp.shape[0],
+           "wall_s": wall, "stage_walls_s": timer.times, "status": res.status,
+           "ba_n_iter": res.n_iter, "reprojection_error": err,
+           "E_vs_noise_floor": err / (x_fp.shape[1] * x_fp.shape[0] * 2 * NOISE**2),
+           "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+           "finite": math.isfinite(err) and finite(torch, res.X, res.calib_X)}
+    return rec, res.X.cpu().numpy()
+
+
+def check_sharded_pipeline(rec: dict, dense_pipe: dict, name: str) -> None:
+    """5e's checks of one rank's record against 4d's."""
+    rec["E_rel_diff_vs_4d"] = (abs(rec["reprojection_error"] - dense_pipe["reprojection_error"])
+                               / dense_pipe["reprojection_error"])
+    check(rec["finite"] and rec["status"] == 0, f"{name}: status {rec['status']}")
+    check(rec["E_vs_noise_floor"] < 1.5, f"{name}: E / floor {rec['E_vs_noise_floor']:.4f}")
+    check(rec["E_rel_diff_vs_4d"] <= SHARDED_PIPELINE_E_RTOL,
+          f"{name}: E differs from 4d's by {rec['E_rel_diff_vs_4d']:.3e}")
+    check((rec["syrk_acc_launches"], rec["syrk_lower_launches"]) == (0, 0),
+          f"{name}: a SYRK kernel launched")
+
+
+def sharded_covariance(torch, mesh, x_pf, state) -> dict:
+    """Phase 5f on this rank: ``sharded_ba_covariance`` against
+    ``ba_covariance`` on one state, in float64 and float32: the largest
+    difference of each block set over its largest entry, sigma^2's
+    relative difference, whether NaN sits where the unsharded result has
+    it (F10: the float32 factor can fail), sqrt(sigma^2)/sigma, and each
+    wall."""
+    from mvrecon_tpu_torch.models.covariance import ba_covariance
+    from mvrecon_tpu_torch.parallel import sharded_ba_covariance
+
+    rec = {"points": x_pf.shape[0], "views": x_pf.shape[1]}
+    for name, dt in (("float64", torch.float64), ("float32", torch.float32)):
+        args = [torch.as_tensor(a, device="cuda").to(dt) for a in (x_pf, *state)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = sharded_ba_covariance(mesh, *args, axis="x-up_z-forward")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        u = ba_covariance(*args, axis="x-up_z-forward")
+        r = {"wall_s": wall, "sigma_vs_true": math.sqrt(float(s.sigma2)) / NOISE,
+             "sigma2_rel_diff": abs(float(s.sigma2) - float(u.sigma2)) / float(u.sigma2),
+             "n_obs_equal": int(s.n_obs) == int(u.n_obs),
+             "finite": finite(torch, s.point_cov, s.camera_cov)}
+        for k in ("point_cov", "camera_cov"):
+            a, b = getattr(s, k), getattr(u, k)
+            r[f"{k}_nan_where_unsharded"] = bool(torch.equal(a.isnan(), b.isnan()))
+            r[f"{k}_nan_share"] = float(a.isnan().double().mean())
+            ok = ~(a.isnan() | b.isnan())
+            r[f"{k}_rel_diff"] = (float((a - b)[ok].abs().max() / b[ok].abs().max())
+                                  if bool(ok.any()) else None)
+        rec[name] = r
+    return rec
+
+
+def check_sharded_covariance(rec: dict, name: str) -> None:
+    """5f's checks: float64 finite, its blocks within SHARDED_COV_RTOL of
+    the unsharded ones; in both dtypes NaN exactly where the unsharded
+    result has it, the same n_obs, sigma^2 within 1e-6 and sqrt(sigma^2)
+    within 5 % of the true sigma."""
+    r64 = rec["float64"]
+    check(r64["finite"], f"{name}: float64 blocks are not finite")
+    for k in ("point_cov", "camera_cov"):
+        check(r64[f"{k}_rel_diff"] <= SHARDED_COV_RTOL,
+              f"{name}: float64 {k} differs by {r64[f'{k}_rel_diff']:.3e}")
+    for dt in ("float64", "float32"):
+        r = rec[dt]
+        check(r["point_cov_nan_where_unsharded"] and r["camera_cov_nan_where_unsharded"],
+              f"{name} {dt}: NaN where the unsharded blocks have none, or the reverse")
+        check(r["n_obs_equal"] and r["sigma2_rel_diff"] < 1e-6
+              and abs(r["sigma_vs_true"] - 1.0) < 0.05,
+              f"{name} {dt}: n_obs equal {r['n_obs_equal']}, sigma2 off by "
+              f"{r['sigma2_rel_diff']:.3e}, sigma / true {r['sigma_vs_true']:.5f}")
+
+
+def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dict, pipe: dict,
+                   dense_pipe: dict) -> dict:
+    """Phases 5a-5f, point sharding (``parallel/sharded_ba.py``,
+    ``sharded_covariance.py``, ``sharded_calibration.py``,
+    ``pipelines.py``):
 
     5a. 4o's problem (rendered anew into host memory from its seed)
     through ``sharded_bundle_adjust_chunked`` under a one-rank NCCL group:
@@ -1707,7 +1933,18 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
     rank;
     5c. 4c's problem through ``sharded_bundle_adjust`` on the NCCL rank (E
     within ``SHARDED_E_RTOL_ONE_RANK`` of 4c's) and on the two ranks
-    (reported), and one ``sharded_lm_step`` against ``lm_step``.
+    (reported), and one ``sharded_lm_step`` against ``lm_step``;
+    5f. ``sharded_ba_covariance`` of 5c's result against ``ba_covariance``
+    in float64 and float32, at one rank and two (``check_sharded_covariance``);
+    5e. ``sharded_euclidean_reconstruction`` on 4d's observations with 4c's
+    schedule, at one rank and two: status 0, E / floor < 1.5, E within
+    ``SHARDED_PIPELINE_E_RTOL`` of 4d's, no launch; the ranks equal;
+    5d. ``euclidean_reconstruction_large(mesh=)`` on phase 4's scene and
+    config, at one rank and two: status 0, E / floor < 1.5, E within
+    ``SHARDED_LARGE_E_RTOL`` of phase 4's, K2 launches == retries x chunks
+    on every rank (the BA runs whole on each), the ranks equal; the
+    calibration's wall, its Gram all-reduce's bytes and ms and the peak
+    memory beside phase 4's.
 
     Returns the launches of K2 and K1 by phase."""
     import torch.distributed as dist
@@ -1717,7 +1954,7 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
     from mvrecon_tpu_torch.models import bundle_adjustment as tba
     from mvrecon_tpu_torch.parallel import sharded_ba as sba
     from mvrecon_tpu_torch.parallel.mesh import make_mesh
-    from mvrecon_tpu_torch.runtime.distributed import initialize
+    from mvrecon_tpu_torch.runtime.distributed import free_port, initialize
 
     initialize(f"127.0.0.1:{free_port()}", 1, 0)
     try:
@@ -1756,7 +1993,7 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
 
         # 5c, one rank
         d_start = dense_problem_host(torch, make_synthetic_scene, args.dense_points)
-        d_cfg = LMConfig(scale_factor=2.0, delta_tol=0.0, max_iter=10)
+        d_cfg = dense_config(LMConfig)
         rec_c, res_c = sharded_run(torch, fs, sy, sba.sharded_bundle_adjust, mesh, d_start,
                                    config=d_cfg)
         rec_c["E_rel_diff_vs_4c"] = (abs(rec_c["reprojection_error"]
@@ -1764,7 +2001,8 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
                                      / dense_rec["reprojection_error"])
         rec_c["unsharded_4c"] = {key: dense_rec[key] for key in (
             "wall_s", "n_iter", "reprojection_error", "E_vs_noise_floor")}
-        X_c = res_c.X.cpu().numpy()
+        state_c = [a.cpu().numpy() for a in (res_c.X, res_c.K, res_c.R, res_c.t)]
+        X_c = state_c[0]
         del res_c
         # one sharded_lm_step against lm_step, from 4c's normalized start
         x, vis, state, free, _ = tba._prepare_problem(*d_start, 1.0, None, "x-up_z-forward",
@@ -1778,6 +2016,15 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
             "X_max_abs_diff": float((new_s.X - new_u.X).abs().max()),
         }
         del x, vis, state, new_s, new_u
+        # 5f on 5c's result, 5e on 4d's observations, 5d on phase 4's scene
+        cov_f = sharded_covariance(torch, mesh, d_start[0], state_c)
+        rec_e, X_e = sharded_pipeline(torch, fs, sy, mesh, d_start[0].transpose(1, 0, 2), d_cfg)
+        del d_start
+        torch.cuda.empty_cache()
+        _, scene = north_star_scenes(torch, make_synthetic_scene, args.points)
+        rec_d, X_d = sharded_large(torch, fs, sy, mesh, scene, config)
+        del scene
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
@@ -1837,16 +2084,60 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
     check((rec_c["syrk_acc_launches"], rec_c["syrk_lower_launches"]) == (0, 0)
           and all((r["syrk_acc_launches"], r["syrk_lower_launches"]) == (0, 0) for r in d_recs),
           "5c: the dense sharded core launched a SYRK kernel")
+
+    rec_f = {"one_rank": cov_f, "two_ranks": [r["records"]["covariance"] for r in ranks],
+             "rtol_float64": SHARDED_COV_RTOL, "float32_blocks_checked": False}
+    print("sharded_covariance " + json.dumps(rec_f), flush=True)
+    # F10: the float32 blocks are held only by their NaN pattern, n_obs and
+    # sigma^2 until the float32 factor is repaired; their gap is shown
+    gaps = {f"{label} {k}": r["float32"][f"{k}_rel_diff"]
+            for label, r in [("one rank", cov_f)] + [(f"rank {i} of two", c) for i, c in
+                                                     enumerate(rec_f["two_ranks"])]
+            for k in ("point_cov", "camera_cov")}
+    print("5f: float32 blocks not held against ba_covariance (F10); largest gap over the "
+          "largest entry: " + json.dumps(gaps), flush=True)
+    check_sharded_covariance(cov_f, "5f one rank")
+    for i, r in enumerate(rec_f["two_ranks"]):
+        check_sharded_covariance(r, f"5f rank {i} of two")
+
+    e_recs = [r["records"]["pipeline"] for r in ranks]
+    for r in [rec_e] + e_recs:
+        check_sharded_pipeline(r, dense_pipe, f"5e ({r['ranks']} ranks)")
+    rec_e["two_ranks"] = {"ranks": e_recs,
+                          "X_max_abs_diff_vs_one_rank": max_abs_diff(ranks[0]["pipeline_X"], X_e)}
+    rec_e["unsharded_4d"] = {key: dense_pipe[key] for key in (
+        "wall_s", "stage_walls_s", "ba_n_iter", "reprojection_error", "E_vs_noise_floor")}
+    rec_e["E_rtol"] = SHARDED_PIPELINE_E_RTOL
+    print("sharded_pipeline " + json.dumps(rec_e), flush=True)
+
+    d5_recs = [r["records"]["large"] for r in ranks]
+    for r in [rec_d] + d5_recs:
+        check_sharded_large(r, pipe, f"5d ({r['ranks']} ranks)")
+    rec_d["two_ranks"] = {"ranks": d5_recs,
+                          "X_max_abs_diff_vs_one_rank": max_abs_diff(ranks[0]["large_X"], X_d)}
+    rec_d["phase_4"] = {key: pipe[key] for key in (
+        "wall_s", "calibration_s", "ba_s", "ba_solver_retries", "syrk_acc_launches",
+        "reprojection_error", "E_vs_noise_floor", "max_memory_allocated_gb")}
+    rec_d["E_rtol"] = SHARDED_LARGE_E_RTOL
+    print("sharded_large " + json.dumps(rec_d), flush=True)
     return {
         "syrk_acc": {"5a": rec_a["syrk_acc_launches"],
                      "5b_per_rank": [r["syrk_acc_launches"] for r in recs],
                      "5c": rec_c["syrk_acc_launches"],
-                     "5c_per_rank": [r["syrk_acc_launches"] for r in d_recs]},
+                     "5c_per_rank": [r["syrk_acc_launches"] for r in d_recs],
+                     "5d": rec_d["syrk_acc_launches"],
+                     "5d_per_rank": [r["syrk_acc_launches"] for r in d5_recs],
+                     "5e": rec_e["syrk_acc_launches"],
+                     "5e_per_rank": [r["syrk_acc_launches"] for r in e_recs]},
         "syrk_lower": {"5a": rec_a["syrk_lower_launches"],
                        "5a_unsharded_4o": opencv_rec["syrk_lower_launches"],
                        "5b_per_rank": rec_b["syrk_lower_launches_per_rank"],
                        "5c": rec_c["syrk_lower_launches"],
-                       "5c_per_rank": [r["syrk_lower_launches"] for r in d_recs]},
+                       "5c_per_rank": [r["syrk_lower_launches"] for r in d_recs],
+                       "5d": rec_d["syrk_lower_launches"],
+                       "5d_per_rank": [r["syrk_lower_launches"] for r in d5_recs],
+                       "5e": rec_e["syrk_lower_launches"],
+                       "5e_per_rank": [r["syrk_lower_launches"] for r in e_recs]},
     }
 
 
@@ -2015,6 +2306,22 @@ def bal_on_card(torch, fs, sy, bal_points: int) -> dict:
               f"bal {model}: launches (K2, K1) {launches}, not the non-fused build's")
         check(r["pinhole_distortion_zero"] and e_pin < 2.0 * e_model,
               f"bal {model}: the pinhole model's E {e_pin:.6g} against the modelled {e_model:.6g}")
+        if model == "fisheye":
+            # 5g: the same command with --shard-points 1, the sharded chunked
+            # core (the non-fused build, K1, as unsharded for this family)
+            with tempfile.TemporaryDirectory() as tmp:
+                tio.save_colmap(os.path.join(tmp, "model"), x_host, vis_host, X0, R, t0,
+                                K[:, 0, 0], principal_point=K[:, :2, 2],
+                                distortion=dist.cpu().numpy(), distortion_model=model,
+                                binary=True)
+                recs[f"{model}_sharded"] = sharded_command(
+                    torch, fs, sy, ["bal", os.path.join(tmp, "model"), "--chunk-size", str(CHUNK),
+                                    "--optimize-distortion", "1", "--shared-k", "--covariance",
+                                    "--max-iter", "10"], rec, launches, "bal")
+            chunks = math.ceil(npts / CHUNK)
+            k1 = recs[f"{model}_sharded"]["syrk_lower_launches"]
+            check(k1 > 0 and k1 % chunks == 0,
+                  f"5g bal: K1 launches {k1} are not retries x {chunks} chunks")
     return recs
 
 
@@ -2573,6 +2880,43 @@ def run_cli(torch, fs, sy, argv: list) -> tuple[dict, tuple[int, int], float]:
     return rec, launches, wall
 
 
+def sharded_command(torch, fs, sy, argv: list, unsharded: dict, launches: tuple,
+                    name: str) -> dict:
+    """Phase 5g: ``argv`` with ``--shard-points 1`` in process, no launcher
+    (the command forms a one-rank NCCL group of its own and destroys it),
+    against the same command's unsharded record and (K2, K1) launches:
+    ``shard_points`` in the record, E within ``SHARDED_CLI_E_RTOL``, the
+    same launches."""
+    import torch.distributed as dist
+
+    rec, got, wall = run_cli(torch, fs, sy, argv + ["--shard-points", "1"])
+    e_rel = abs(rec["reprojection_error"] - unsharded["reprojection_error"]) / abs(
+        unsharded["reprojection_error"])
+    r = {"argv": argv + ["--shard-points", "1"], "wall_s": wall, "record": rec,
+         "E_rel_diff_vs_unsharded": e_rel, "E_rtol": SHARDED_CLI_E_RTOL,
+         "unsharded_E": unsharded["reprojection_error"], "syrk_acc_launches": got[0],
+         "syrk_lower_launches": got[1], "unsharded_launches": list(launches)}
+    print(f"sharded_cli_{name} " + json.dumps(r), flush=True)
+    check(rec["shard_points"] == 1 and not dist.is_initialized(),
+          f"5g {name}: record {rec}, or its process group outlived the command")
+    check(e_rel <= SHARDED_CLI_E_RTOL, f"5g {name}: E differs from the unsharded run's by "
+          f"{e_rel:.3e}")
+    check(tuple(got) == tuple(launches), f"5g {name}: launches (K2, K1) {got} against the "
+          f"unsharded run's {launches}")
+    return r
+
+
+def euclidean_on_card(torch, fs, sy) -> dict:
+    """Phase 5g's ``euclidean``: the command's default scene (200 points x
+    10 views) in float64, unsharded and with ``--shard-points 1``."""
+    argv = ["euclidean", "--float64"]
+    rec, launches, wall = run_cli(torch, fs, sy, argv)
+    check(rec["status"] == 0 and launches == (0, 0), f"euclidean: {rec}, launches {launches}")
+    return {"unsharded": {"wall_s": wall, "record": rec, "syrk_acc_launches": launches[0],
+                          "syrk_lower_launches": launches[1]},
+            "sharded": sharded_command(torch, fs, sy, argv, rec, launches, "euclidean")}
+
+
 def ply_vertices(path: str) -> int:
     with open(path, "rb") as fh:
         head = fh.read(4096).decode("ascii", "replace")
@@ -2656,6 +3000,16 @@ def reconstruct_on_card(torch, fs, sy, dense_points: int) -> dict:
         with open(log) as fh:
             lines = [json.loads(line) for line in fh]
         check(lines == [r["record"] for r in recs.values()], "reconstruct --log-json lines")
+        # 5g: the float64 run again with --shard-points 1 (the sharded
+        # calibration, then the dense sharded core; the covariance unsharded)
+        f64 = recs["float64_covariance"]
+        recs["float64_covariance_sharded"] = sharded_command(
+            torch, fs, sy, ["reconstruct", path, "--max-iter", str(RECONSTRUCT_ITERS),
+                            "--float64", "--covariance", "--output", out_npz],
+            f64["record"], (f64["syrk_acc_launches"], f64["syrk_lower_launches"]), "reconstruct")
+        check(recs["float64_covariance_sharded"]["record"]["sigma"] > 0
+              and tio.load_observations(out_npz)["point_cov"].shape == (npts, 3, 3),
+              "5g reconstruct: no covariance in the record or the output")
     return recs
 
 
@@ -3080,7 +3434,8 @@ def main() -> int:
     # 5a-5c. point-sharded BA: 4o's problem on one NCCL rank and on two
     # ranks on the one card, 4c's through the dense sharded core
     torch.cuda.empty_cache()
-    sharded_launches = sharded_phases(torch, fs, sy, args, config, opencv_rec, dense)
+    sharded_launches = sharded_phases(torch, fs, sy, args, config, opencv_rec, dense, pipe,
+                                      dense_pipe)
 
     # 4m. scripts/bench_bal.py's distorted problem through the dense core;
     # 4q. the same problem through each of the other four families, one
@@ -3108,6 +3463,7 @@ def main() -> int:
     # reference-named API (BundleAdjuster above its chunked threshold, the
     # native MST, the perspective shim)
     recon_recs = reconstruct_on_card(torch, fs, sy, args.dense_points)
+    eucl_rec = euclidean_on_card(torch, fs, sy)  # 5g's euclidean
     bench_recs = bench_ba_on_card(torch, fs, sy, args.points, args.dense_points)
     api_rec = reference_api_on_card(torch, fs, sy, args.bal_points)
     torch.cuda.empty_cache()
@@ -3275,6 +3631,15 @@ def main() -> int:
                 "5": sparse_small["launches_gpu"][i]}
 
     # the command-line and reference-API phases' launches of either kernel
+    # the point-sharded phases' launches of either kernel: 5a-5f, and 5g's
+    # commands with --shard-points 1
+    def sharded_launches_of(i: int) -> dict:
+        key = ("syrk_acc_launches", "syrk_lower_launches")[i]
+        return {**sharded_launches[key.removesuffix("_launches")],
+                "5g": {"euclidean": eucl_rec["sharded"][key],
+                       "reconstruct": recon_recs["float64_covariance_sharded"][key],
+                       "bal": bal_recs["fisheye_sharded"][key]}}
+
     def cli_launches(i: int) -> dict:
         key = ("syrk_acc_launches", "syrk_lower_launches")[i]
         return {"launches_reconstruct": {m: r[key] for m, r in recon_recs.items()},
@@ -3290,7 +3655,7 @@ def main() -> int:
         "launches_robust_chunked": k2_robust, "launches_distorted_chunked": k2_distorted,
         "launches_sparse": sparse_launches(0),
         **cli_launches(0),
-        "launches_sharded": sharded_launches["syrk_acc"],
+        "launches_sharded": sharded_launches_of(0),
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "max_rel_err": k2["max_rel_err"],
@@ -3313,7 +3678,7 @@ def main() -> int:
         "launches_bal": {m: r["syrk_lower_launches"] for m, r in bal_recs.items()},
         "launches_sparse": sparse_launches(1),
         **cli_launches(1),
-        "launches_sharded": sharded_launches["syrk_lower"],
+        "launches_sharded": sharded_launches_of(1),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

@@ -34,10 +34,13 @@ Ported so far, on one device:
   and ``visualization`` (matplotlib, imported only to draw).
 
 Over several ranks (``runtime/distributed.py``: one process per device,
-NCCL between cards, gloo on the CPU): the meshes (``parallel/mesh.py``)
-and point-sharded BA through the dense and the chunked core
-(``parallel/sharded_ba.py``). Not ported yet: the sharded covariance,
-calibration, affine, 2D and sparse paths and the sharded pipelines.
+NCCL between cards, gloo on the CPU): the meshes (``parallel/mesh.py``),
+point-sharded BA through the dense and the chunked core
+(``parallel/sharded_ba.py``), the point-sharded covariance, perspective
+calibration and perspective pipeline (``parallel/sharded_covariance.py``,
+``sharded_calibration.py``, ``pipelines.py``; the large pipeline's
+``mesh``), and ``--shard-points`` of ``euclidean``, ``reconstruct`` and
+``bal``. Not ported yet: the sharded affine, 2D and sparse paths.
 """
 
 __version__ = "0.1.0"

@@ -20,6 +20,18 @@ Every subcommand takes ``--log-json FILE`` (append the record),
 (matplotlib plots of a synthetic scene's result). Runs on the card unless
 ``--device`` says otherwise. The JAX package's ``--platform`` and
 ``--num-cpu-devices`` (XLA switches) have ``--device`` as counterpart.
+
+``--shard-points N`` splits the points of ``euclidean``, ``reconstruct``
+(the euclidean pipeline) and ``bal`` (dense or chunked) over N ranks, one
+process each (``runtime.distributed.join_ranks``): under torchrun,
+
+    torchrun --nproc-per-node N -m mvrecon_tpu_torch euclidean --shard-points N
+
+(``--device cpu`` takes gloo, the cards NCCL), or with N = 1 alone. Every
+rank keeps the per-point arrays on the host, copies only its block of them
+to its device and computes the global result; rank 0 alone prints the
+record and writes the files and the covariance, which runs unsharded, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import sys
 import time
 
 import numpy as np
@@ -64,6 +77,12 @@ def _lm_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--scale-factor", type=float, default=2.0)
 
 
+def _shard_arg(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument("--shard-points", type=int, default=0, metavar="N",
+                   help=f"split the points over N ranks, one process each ({what}); under "
+                   "torchrun --nproc-per-node N, or N = 1 alone")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="mvrecon_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -73,12 +92,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tol", type=float, default=1e-2)
     p.add_argument("--eig-method", choices=["eigh", "lowrank", "power"], default="eigh")
     _lm_args(p)
+    _shard_arg(p, "the calibration and BA; P must divide by N")
 
     p = sub.add_parser("affine", help="affine self-calibration + dense BA on a synthetic scene")
     _scene_args(p, n_points=200, n_images=12, seed=123)
     p.add_argument("--model", choices=["orthographic", "symmetric", "paraperspective"],
                    default="paraperspective")
     _lm_args(p)
+    _shard_arg(p, "not ported yet")
 
     p = sub.add_parser("batch", help="scene-batched perspective pipeline on synthetic scenes")
     _scene_args(p, n_points=200, n_images=10, seed=123)
@@ -112,6 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tol", type=float, default=1e-2)
     p.add_argument("--model", choices=["orthographic", "symmetric", "paraperspective"],
                    default="paraperspective")
+    _shard_arg(p, "the euclidean pipeline only; P must divide by N")
 
     _bal_args(sub.add_parser("bal", help="bundle-adjust a BAL problem file or a COLMAP model"))
 
@@ -161,8 +183,7 @@ def _bal_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--damping", choices=["reference", "nielsen"], default="nielsen")
     p.add_argument("--chunk-size", type=int, default=0, metavar="C",
                    help="the chunked core, C points a chunk (default: the dense core)")
-    p.add_argument("--shard-points", type=int, default=0, metavar="N",
-                   help="shard the points over N devices (not ported yet)")
+    _shard_arg(p, "the dense or chunked core; not with --sparse")
     p.add_argument("--sparse", action="store_true",
                    help="the O(n_observations) observation-list core, for BAL files at "
                    "BAL-class sparsity; writes --output-ply and --output-bal")
@@ -177,6 +198,44 @@ def _bal_args(p: argparse.ArgumentParser) -> None:
                    "the file's cameras instead of the file's points")
 
 
+def _shard_count(args) -> int:
+    """The ranks the command splits its points over: ``--shard-points``
+    for ``euclidean``, ``reconstruct``'s euclidean pipeline (its affine
+    one runs unsharded, as in the JAX package) and ``bal``; 0 for none.
+    The paths that are not ported yet raise before any rank is joined."""
+    n = getattr(args, "shard_points", 0)
+    if n <= 0:
+        return 0
+    if args.command == "affine":
+        raise NotImplementedError("affine --shard-points: the point-sharded affine pipeline "
+                                  "is not ported yet: ROADMAP queue 1 item 4c")
+    if args.command == "bal" and args.sparse:
+        raise NotImplementedError("bal --sparse --shard-points: the point-sharded sparse core "
+                                  "is not ported yet: ROADMAP queue 1 item 4d")
+    if args.command == "reconstruct" and args.pipeline != "euclidean":
+        return 0
+    return n
+
+
+def _lead(args) -> bool:
+    """Whether this process prints the record and writes the files: rank 0
+    of a sharded command, and every unsharded one."""
+    return not _shard_count(args) or torch.distributed.get_rank() == 0
+
+
+def _points_mesh(args):
+    """The ``points`` mesh over the command's ranks."""
+    from .parallel.mesh import make_mesh
+
+    return make_mesh({"points": args.shard_points})
+
+
+def _on_host(a, dt) -> torch.Tensor:
+    """A copy of ``a`` in ``dt`` on the host. A sharded command keeps its
+    per-point arrays there: each rank copies only its block to its device,
+    and rank 0 moves the whole problem there only for the covariance and
+    the writers."""
+    return torch.tensor(np.asarray(a), dtype=dt)
 
 
 def _cmd_bal(args, out: dict, dev, dt) -> None:
@@ -190,11 +249,9 @@ def _cmd_bal(args, out: dict, dev, dt) -> None:
     from .models.bundle_adjustment import bundle_adjust, undistort_points
     from .models.bundle_adjustment_chunked import bundle_adjust_chunked
     from .models.covariance import ba_covariance, ba_covariance_chunked
+    from .parallel.sharded_ba import sharded_bundle_adjust, sharded_bundle_adjust_chunked
     from .runtime import io
 
-    if args.shard_points > 0:
-        raise NotImplementedError("bal --shard-points: the point-sharded bal path is not "
-                                  "ported yet: ROADMAP queue 1 item 4d")
     if args.sparse:
         _cmd_bal_sparse(args, out, dev, dt)
         return
@@ -203,6 +260,12 @@ def _cmd_bal(args, out: dict, dev, dt) -> None:
         cov_fn = functools.partial(ba_covariance_chunked, chunk_size=args.chunk_size)
     else:
         ba_fn, cov_fn = bundle_adjust, ba_covariance
+    sharded = _shard_count(args)
+    if sharded:
+        mesh = _points_mesh(args)
+        ba_fn = (functools.partial(sharded_bundle_adjust_chunked, mesh, chunk_size=args.chunk_size)
+                 if args.chunk_size > 0 else functools.partial(sharded_bundle_adjust, mesh))
+        out["shard_points"] = args.shard_points
     if os.path.isdir(args.input):
         d = io.load_colmap(args.input)
         out["format"] = "colmap"
@@ -212,8 +275,9 @@ def _cmd_bal(args, out: dict, dev, dt) -> None:
     def dev_t(a):
         return as_tensor(np.ascontiguousarray(a), dev, dt)
 
-    x = dev_t(d["x"].transpose(1, 0, 2))  # (P, F, 2)
-    vis = dev_t(d["visibility"])
+    pts_t = functools.partial(_on_host, dt=dt) if sharded else dev_t
+    x = pts_t(d["x"].transpose(1, 0, 2))  # (P, F, 2)
+    vis = pts_t(d["visibility"])
     in_model = str(d.get("distortion_model", "auto"))
     if in_model in ("fisheye", "fov", "thin_prism"):
         out["camera_model"] = in_model
@@ -233,11 +297,13 @@ def _cmd_bal(args, out: dict, dev, dt) -> None:
         dist = torch.cat([dist, torch.zeros_like(dist)], dim=-1)
     f0 = float(d["f0"])
     common = dict(f0=f0, visibility=vis, axis="x-up_z-forward", config=cfg, device=dev)
-    res = ba_fn(x, dev_t(d["X"]), dev_t(d["K"]), dev_t(d["R"]), dev_t(d["t"]),
+    res = ba_fn(x, pts_t(d["X"]), dev_t(d["K"]), dev_t(d["R"]), dev_t(d["t"]),
                 distortion=dist, **common)
     out.update(cams=int(vis.shape[1]), points=int(vis.shape[0]),
                observations=int(d["visibility"].sum()), ba_iterations=int(res.n_iter),
                reprojection_error=float(res.error))
+    if not _lead(args):
+        return
     X, K, R, t = (as_numpy(a) for a in (res.X, res.K, res.R, res.t))
     cov = pt_sig = None
     if args.covariance:
@@ -288,7 +354,7 @@ def _cmd_bal(args, out: dict, dev, dt) -> None:
         out["output_bal"] = args.output_bal
     if args.output_colmap_pinhole:
         x_un = x if dist_out is None else undistort_points(
-            x, res.K[:, 0, 0], res.K[:, :2, 2], f0=f0, distortion=dev_t(dist_out),
+            as_tensor(x, dev, dt), res.K[:, 0, 0], res.K[:, :2, 2], f0=f0, distortion=dev_t(dist_out),
             distortion_model=in_model)
         io.save_colmap(args.output_colmap_pinhole, as_numpy(x_un).transpose(1, 0, 2),
                        d["visibility"], X, R, t, K[:, 0, 0], principal_point=K[:, :2, 2])
@@ -408,7 +474,20 @@ def _cmd_synthetic(args, out: dict, dev, dt) -> None:
     if args.command in ("euclidean", "affine", "batch"):
         config = LMConfig(scale_factor=args.scale_factor, delta_tol=args.delta_tol,
                           max_iter=args.max_iter)
-    if args.command == "euclidean":
+    if args.command == "euclidean" and _shard_count(args):
+        from .parallel.pipelines import sharded_euclidean_reconstruction
+
+        # the scene is drawn on the card, from the unsharded command's stream,
+        # and kept on the host: each rank copies its block of x back
+        sc = type(sc)(*(a.cpu() for a in sc))
+        if args.eig_method != "eigh" and _lead(args):
+            print("warning: --eig-method is ignored with --shard-points (the sharded "
+                  "calibration always uses the exact Gram-subspace eigensolve)", file=sys.stderr)
+        res = sharded_euclidean_reconstruction(_points_mesh(args), sc.x, f0=args.f0, tol=args.tol,
+                                               method=args.method, config=config, device=dev,
+                                               timer=timer)
+        out.update(method=args.method, shard_points=args.shard_points)
+    elif args.command == "euclidean":
         res = euclidean_reconstruction(sc.x, f0=args.f0, tol=args.tol, method=args.method,
                                        config=config, eig_method=args.eig_method, device=dev,
                                        timer=timer)
@@ -445,7 +524,7 @@ def _cmd_synthetic(args, out: dict, dev, dt) -> None:
     out.update(status=status, ba_iterations=n_iter, reprojection_error=err,
                n_points=n_points, n_views=args.n_images, wall_s=wall,
                stage_walls_s=timer.times, E_vs_noise_floor=err / floor if floor > 0 else None)
-    if args.viz and args.command in ("euclidean", "affine"):
+    if args.viz and args.command in ("euclidean", "affine") and _lead(args):
         _show(sc.x, res)
 
 
@@ -481,18 +560,30 @@ def _cmd_reconstruct(args, out: dict, dev, dt) -> None:
     from .runtime.profiling import StageTimer
 
     data = io.load_observations(args.input)
-    x = as_tensor(data["x"], dev, dt)
+    sharded = _shard_count(args)
+
+    def pts_t(a):
+        return _on_host(a, dt) if sharded else as_tensor(a, dev, dt)
+
+    x = pts_t(data["x"])
     nf = x.shape[0]
     f0 = float(data.get("f0", args.f0))
     visibility = None
     if "visibility" in data:
-        visibility = as_tensor(data["visibility"], dev, dt)
+        visibility = pts_t(data["visibility"])
         out["n_visible"] = int(data["visibility"].sum())
     config = LMConfig(scale_factor=args.scale_factor, delta_tol=args.delta_tol,
                       max_iter=args.max_iter)
     timer = StageTimer()
     start = time.perf_counter()
-    if args.pipeline == "euclidean":
+    if sharded:
+        from .parallel.pipelines import sharded_euclidean_reconstruction
+
+        res = sharded_euclidean_reconstruction(_points_mesh(args), x, f0=f0, tol=args.tol,
+                                               method=args.method, config=config,
+                                               visibility=visibility, device=dev, timer=timer)
+        out["shard_points"] = args.shard_points
+    elif args.pipeline == "euclidean":
         eig_method = _reconstruct_eig_method(args.method, nf, x.shape[1], dev, dt)
         out["eig_method"] = eig_method
         res = euclidean_reconstruction(x, f0=f0, tol=args.tol, method=args.method,
@@ -506,11 +597,11 @@ def _cmd_reconstruct(args, out: dict, dev, dt) -> None:
     out.update(status=int(res.status), ba_iterations=int(res.n_iter),
                reprojection_error=float(res.error), n_points=int(res.X.shape[0]),
                n_views=int(nf))
-    if "X_gt" in data:
+    if "X_gt" in data and _lead(args):
         # the reconstruction is defined up to a similarity: align before the RMSE
         out["aligned_rmse_gt"] = float(aligned_rmse(res.X, as_tensor(data["X_gt"], dev, dt)))
     cov = pt_sig = None
-    if args.covariance:
+    if args.covariance and _lead(args):
         with timer.stage("covariance"):
             cov = ba_covariance(x.transpose(0, 1), res.X, res.K, res.R, res.t, f0=f0,
                                 visibility=visibility, axis="x-up_z-forward", device=dev)
@@ -519,6 +610,8 @@ def _cmd_reconstruct(args, out: dict, dev, dt) -> None:
                    point_sigma_median=float(np.median(pt_sig)),
                    point_sigma_max=float(pt_sig.max()))
     out.update(wall_s=time.perf_counter() - start, stage_walls_s=timer.times)
+    if not _lead(args):
+        return
     if args.output:
         extra = {}
         if cov is not None:
@@ -589,18 +682,28 @@ def main(argv=None) -> int:
     out: dict = {"command": args.command}
     t_start = time.perf_counter()
     with contextlib.ExitStack() as stack:
+        n_shards = _shard_count(args)
+        if n_shards:
+            from .runtime.distributed import join_ranks, local_device
+
+            if join_ranks(n_shards, "cpu" if dev.type == "cpu" else None):
+                stack.callback(torch.distributed.destroy_process_group)
+            if dev.type == "cuda":
+                dev = local_device()  # the rank's own card
         if args.profile:
             from .runtime.profiling import capture_trace
 
             stack.enter_context(capture_trace(args.profile))
             out["profile_dir"] = args.profile
         _COMMANDS[args.command](args, out, dev, dt)
+        lead = _lead(args)
     out["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     out["dtype"] = str(dt).removeprefix("torch.")
     out["total_wall_s"] = round(time.perf_counter() - t_start, 2)
     line = json.dumps(out)
-    if args.log_json:
+    if args.log_json and lead:
         with open(args.log_json, "a") as fh:
             fh.write(line + "\n")
-    print(line)
+    if lead:
+        print(line)
     return 0

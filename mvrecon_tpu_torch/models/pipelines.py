@@ -4,22 +4,23 @@ Counterpart of ``mvrecon_tpu/models/pipelines.py``: the affine pipeline
 (affine self-calibration, then dense BA), the perspective pipeline
 (self-calibration, then dense BA) and its large-scale variant
 (self-calibration, an optional camera bootstrap on a point subsample, then
-chunked BA), on one device. Each stage's wall goes to an optional
-``StageTimer``. The affine and the dense perspective pipeline take leading
-scene dimensions, which run as lanes (``parallel/batched.py``). The
-sharded calibration (``mesh``) is not ported yet.
+chunked BA), on one device. Each stage is a span of the profiler trace
+(``runtime/profiling.trace_span``) under the JAX package's name, and its
+wall goes to an optional ``StageTimer``. The affine and the dense
+perspective pipeline take leading scene dimensions, which run as lanes
+(``parallel/batched.py``). The large pipeline can calibrate with the
+points split over a mesh (``mesh``; ``parallel/sharded_calibration.py``).
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import torch
 
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
 from ..ops.triangulation import triangulate
-from ..runtime.profiling import StageTimer
+from ..runtime.profiling import StageTimer, trace_span
 from .affine import affine_self_calibration
 from .bundle_adjustment import bundle_adjust
 from .bundle_adjustment_chunked import bundle_adjust_chunked
@@ -42,7 +43,8 @@ class ReconstructionResult(NamedTuple):
 
 
 def _stage(timer: StageTimer | None, name: str):
-    return timer.stage(name) if timer is not None else contextlib.nullcontext()
+    """The stage's trace span, timed when there is a timer."""
+    return timer.stage(name) if timer is not None else trace_span(name)
 
 
 def affine_reconstruction(
@@ -158,19 +160,29 @@ def euclidean_reconstruction_large(
     the final BA only; the bootstrap keeps its own plain-loss schedule, as
     in the JAX package.
 
+    With ``mesh`` the calibration runs with the points split over its
+    ``points`` axis (``parallel.sharded_calibration.
+    sharded_perspective_self_calibration``, P divisible by the axis size),
+    and every rank gets its global result. Only the calibration is
+    sharded, as in the JAX package: every rank then runs the bootstrap and
+    the chunked BA whole, the fused build and K2 included, and returns the
+    same result, so at N ranks the BA costs N times its device time.
+
     Runs on the card unless ``device`` says otherwise; the working dtype
-    is x's. ``timer`` records the wall of each stage. The sharded
-    calibration (``mesh``) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError("euclidean_reconstruction_large(mesh=...): the sharded "
-                                  "calibration is not ported yet: ROADMAP queue 1 item 4b")
+    is x's. ``timer`` records the wall of each stage."""
     dev = resolve_device(device)
     x = as_tensor(x, dev, result_dtype(x))
 
     with _stage(timer, "perspective_self_calibration"):
-        calib = perspective_self_calibration(
-            x, f0=f0, tol=tol, method=method, eig_method="lowrank", device=dev
-        )
+        if mesh is not None:
+            from ..parallel.sharded_calibration import sharded_perspective_self_calibration
+
+            calib = sharded_perspective_self_calibration(mesh, x, f0=f0, tol=tol, method=method,
+                                                         device=dev)
+        else:
+            calib = perspective_self_calibration(
+                x, f0=f0, tol=tol, method=method, eig_method="lowrank", device=dev
+            )
     n_points = x.shape[1]
     x_pf = x.transpose(0, 1)  # (P, F, 2)
     X_init, K_init, R_init, t_init = calib.X, calib.K, calib.R, calib.t

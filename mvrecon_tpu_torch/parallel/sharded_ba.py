@@ -18,7 +18,10 @@ the name (``parallel.mesh.bind_axes``). Every rank calls these functions
 with the same global host arrays, moves only its own block to its device,
 and gets back the global result: X is gathered by an all-reduce of a
 zero-filled (P_pad, 3) buffer, so the port's collectives are
-``all_reduce`` and ``broadcast`` only.
+``all_reduce`` and ``broadcast`` only. ``bundle_adjust_block`` is the
+dense core from a block that is already on the rank's device, and returns
+the block: the sharded pipeline (``parallel/pipelines.py``) feeds it the
+calibrated block without a gather between the stages.
 """
 
 from __future__ import annotations
@@ -71,12 +74,10 @@ def pad_points(x, X, vis, n_shards: int):
             torch.cat([vis, vis.new_zeros((rem,) + vis.shape[1:])]), npts)
 
 
-def _local_problem(mesh, x, init_X, init_K, init_R, init_t, f0: float, visibility,
-                   axis: str, dev: torch.device):
-    """This rank's block of the padded problem on ``dev`` in x's dtype:
-    (x_l, vis_l, state0 (the block's X, replicated cameras), free, restore
-    info, P). Without a visibility mask vis is a (P, 1) column, zero on
-    the padding."""
+def _local_blocks(mesh, x, init_X, visibility, dev: torch.device):
+    """This rank's block of the padded points on ``dev`` in x's dtype:
+    (x_l, X_l, vis_l, P). Without a visibility mask vis is a (P, 1)
+    column, zero on the padding."""
     dt = result_dtype(x)
     x = _host(x)
     vis = (torch.ones((x.shape[0], 1), dtype=dt) if visibility is None
@@ -84,13 +85,21 @@ def _local_problem(mesh, x, init_X, init_K, init_R, init_t, f0: float, visibilit
     x_p, X_p, vis_p, npts = pad_points(x, _host(init_X), vis, mesh_shape(mesh)[POINTS_AXIS])
     x_l, X_l, vis_l = (as_tensor(distribute_array(mesh, (POINTS_AXIS,), a, dev), dev, dt)
                        for a in (x_p, X_p, vis_p))
-    if visibility is not None:
-        x_l = torch.where(vis_l[..., None] > 0, x_l, 0.0)
-    X0, R0, t0, info = normalize_gauge(X_l, as_tensor(init_R, dev, dt),
+    return x_l, X_l, vis_l, npts
+
+
+def _block_start(x_l, X_l, vis_l, init_K, init_R, init_t, f0: float, axis: str):
+    """The gauge-normalized start of a block: (x_l with its masked
+    observations zeroed, state0 (the block's X, replicated cameras), free,
+    restore info). The gauge comes from the cameras alone, so every rank
+    normalizes its block into the same frame."""
+    dev, dt = x_l.device, x_l.dtype
+    x_l = torch.where(vis_l[..., None] > 0, x_l, 0.0)
+    X0, R0, t0, info = normalize_gauge(as_tensor(X_l, dev, dt), as_tensor(init_R, dev, dt),
                                        as_tensor(init_t, dev, dt), axis)
     f_in, u_in = intrinsics_from_K(as_tensor(init_K, dev, dt), f0)
     state0 = BAState(X=X0, f=f_in, u=u_in, t=t0, R=R0)
-    return x_l, vis_l, state0, gauge_mask(x.shape[1], axis, dt, dev), info, npts
+    return x_l, state0, gauge_mask(x_l.shape[1], axis, dt, dev), info
 
 
 def _distortion_start(distortion, config: LMConfig, nf: int, like: torch.Tensor):
@@ -103,12 +112,17 @@ def _distortion_start(distortion, config: LMConfig, nf: int, like: torch.Tensor)
     return distortion is not None or config.distortion_rounds > 0, model, dist
 
 
-def _global_result(mesh, info, final: BAState, f0: float, npts: int, **fields) -> BAResult:
-    """The global ``BAResult`` on every rank: X gathered over the points
-    axis, the gauge restored, the padding cut."""
-    X = gather_array(mesh, final.X, (POINTS_AXIS,))
-    Xg, Rg, tg = restore_gauge(info, X, final.R, final.t)
-    return BAResult(X=Xg[:npts], K=build_K(final.f, final.u, f0), R=Rg, t=tg, **fields)
+def _block_result(info, final: BAState, f0: float, **fields) -> BAResult:
+    """A block's ``BAResult`` in the caller's frame (the gauge restore is
+    pointwise): X is this rank's block."""
+    X, R, t = restore_gauge(info, final.X, final.R, final.t)
+    return BAResult(X=X, K=build_K(final.f, final.u, f0), R=R, t=t, **fields)
+
+
+def _gathered(mesh, res: BAResult, npts: int) -> BAResult:
+    """The global result on every rank: X gathered over the points axis,
+    the padding cut."""
+    return res._replace(X=gather_array(mesh, res.X, (POINTS_AXIS,))[:npts])
 
 
 def sharded_bundle_adjust_chunked(
@@ -143,8 +157,8 @@ def sharded_bundle_adjust_chunked(
     from ..models.bundle_adjustment_chunked import fit_distortion_chunked, lm_optimize_chunked
 
     dev = resolve_device(device)
-    x_l, vis_l, st0, free, info, npts = _local_problem(
-        mesh, x, init_X, init_K, init_R, init_t, f0, visibility, axis, dev)
+    x_l, X_l, vis_l, npts = _local_blocks(mesh, x, init_X, visibility, dev)
+    x_l, st0, free, info = _block_start(x_l, X_l, vis_l, init_K, init_R, init_t, f0, axis)
     dt = x_l.dtype
     c_r = as_tensor(config.init_damping if init_c is None else init_c, dev, dt)
     nu_r = as_tensor(2.0 if init_nu is None else init_nu, dev, dt)
@@ -169,9 +183,10 @@ def sharded_bundle_adjust_chunked(
         final, e, c_f, nu_f, n_iter, n_retries, _ = lm_optimize_chunked(
             x_l, st0, vis_l, free, f0, config, chunk_size, axis_name=POINTS_AXIS,
             init_c=c_r, init_nu=nu_r, dist=dist)
-        return _global_result(mesh, info, final, f0, npts, error=e, n_iter=n_iter + n_total,
-                              log={"n_solver_retries": n_retries, "c": c_f, "nu": nu_f},
-                              distortion=dist if model_dist else None)
+    res = _block_result(info, final, f0, error=e, n_iter=n_iter + n_total,
+                        log={"n_solver_retries": n_retries, "c": c_f, "nu": nu_f},
+                        distortion=dist if model_dist else None)
+    return _gathered(mesh, res, npts)
 
 
 def sharded_lm_step(mesh, x, state: BAState, vis, free, c, f0: float = 1.0, device=None):
@@ -216,8 +231,34 @@ def sharded_bundle_adjust(
     ``log`` is None. Runs on the card unless ``device`` says otherwise;
     the working dtype is x's."""
     dev = resolve_device(device)
-    x_l, vis_l, st0, free, info, npts = _local_problem(
-        mesh, x, init_X, init_K, init_R, init_t, f0, visibility, axis, dev)
+    x_l, X_l, vis_l, npts = _local_blocks(mesh, x, init_X, visibility, dev)
+    res = bundle_adjust_block(mesh, x_l, X_l, vis_l, init_K, init_R, init_t, f0=f0, axis=axis,
+                              config=config, distortion=distortion)
+    return _gathered(mesh, res, npts)
+
+
+def bundle_adjust_block(
+    mesh,
+    x_l: torch.Tensor,
+    X_l: torch.Tensor,
+    vis_l: torch.Tensor | None,
+    init_K,
+    init_R,
+    init_t,
+    f0: float = 1.0,
+    axis: str = "x-right_z-forward",
+    config: LMConfig = LMConfig(),
+    distortion=None,
+) -> BAResult:
+    """:func:`sharded_bundle_adjust` from this rank's block, already on its
+    device: x_l (Pl, F, 2), X_l (Pl, 3) and vis_l (Pl, F), a (Pl, 1)
+    column or None (every observation seen), with the cameras replicated.
+    The X of the result is the block's, in the caller's frame; nothing is
+    gathered. A pipeline feeds it the calibrated block this way, so the
+    point cloud is never gathered between its stages."""
+    if vis_l is None:
+        vis_l = x_l.new_ones((x_l.shape[0], 1))
+    x_l, st0, free, info = _block_start(x_l, X_l, vis_l, init_K, init_R, init_t, f0, axis)
     model_dist, model, dist0 = _distortion_start(distortion, config, x_l.shape[1], x_l)
     robust_kind = resolve_robust(config.robust)
     dist = dist0 if model_dist else None
@@ -240,5 +281,5 @@ def sharded_bundle_adjust(
             n_total += n_seg
         final, e, _, _, n_iter, _ = lm_optimize(x_l, st0, vis_l, free, f0, config,
                                                 axis_name=POINTS_AXIS, init_c=c_seg, dist=dist)
-        return _global_result(mesh, info, final, f0, npts, error=e, n_iter=n_iter + n_total,
-                              log=None, distortion=dist if model_dist else None)
+    return _block_result(info, final, f0, error=e, n_iter=n_iter + n_total, log=None,
+                         distortion=dist if model_dist else None)

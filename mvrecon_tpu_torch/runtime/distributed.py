@@ -23,10 +23,15 @@ JAX's ``local_device_count`` (devices per process) becomes ranks per host.
 Launch N ranks with ``torchrun --nproc-per-node N script.py`` (or
 ``python -m torch.distributed.run``) and call ``initialize`` in each with
 the address, the world size and the rank, or start the processes yourself
-as ``tests/test_torch_sharded.py`` does.
+as ``tests/test_torch_sharded.py`` does. ``join_ranks`` is how a command
+with ``--shard-points N`` joins: the group it is in, torchrun's, or one
+rank of its own.
 """
 
 from __future__ import annotations
+
+import os
+import socket
 
 import numpy as np
 import torch
@@ -88,6 +93,44 @@ def initialize(
                             rank=process_id)
     _LOCAL.update(device=dev, ranks_per_host=per_host)
     return dev
+
+
+# what torchrun sets in the environment of every rank it starts
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_WORLD_SIZE")
+
+
+def free_port() -> int:
+    """A TCP port on localhost that no one listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def join_ranks(n: int, platform: str | None = None) -> bool:
+    """Make this process one of ``n`` ranks for a sharded command: in the
+    process group it is already in, whose size must be ``n``; else in
+    torchrun's, from the variables torchrun sets (``TORCHRUN_VARS``);
+    else, for ``n == 1``, in a one-rank group of its own on a free
+    localhost port. ``platform`` is ``initialize``'s ("cpu" takes gloo, a
+    card NCCL). Returns whether this call formed the group, which its
+    caller then destroys; ``ValueError`` when ``n`` ranks cannot be had."""
+    if dist.is_initialized():
+        if dist.get_world_size() != n:
+            raise ValueError(f"--shard-points {n} in a process group of "
+                             f"{dist.get_world_size()} ranks")
+        return False
+    env = os.environ
+    if all(k in env for k in TORCHRUN_VARS):
+        if int(env["WORLD_SIZE"]) != n:
+            raise ValueError(f"--shard-points {n} under torchrun with {env['WORLD_SIZE']} ranks")
+        initialize(f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}", n, int(env["RANK"]),
+                   platform=platform, local_device_count=int(env["LOCAL_WORLD_SIZE"]))
+        return True
+    if n == 1:
+        initialize(f"127.0.0.1:{free_port()}", 1, 0, platform=platform)
+        return True
+    raise ValueError(f"--shard-points {n} needs {n} ranks, one process each: launch it with "
+                     f"torchrun --nproc-per-node {n} -m mvrecon_tpu_torch ...")
 
 
 def local_device() -> torch.device:

@@ -10,7 +10,7 @@
 - ``bench-ba``, dense and ``--chunked``, under JAX's record keys;
 - ``--profile`` writing a trace that holds the pipeline's spans, and
   ``--viz`` drawing headless;
-- every flag of JAX's subcommands but the XLA and sharding switches parses
+- every flag of JAX's subcommands but the XLA switches parses
   in the port's same-named subcommand.
 """
 
@@ -37,8 +37,8 @@ from mvrecon_tpu_torch.runtime.profiling import TRACE_FILE
 # eigensolve, which the port picks from the card's free memory)
 PORT_EXTRAS = {"device", "dtype", "wall_s", "stage_walls_s", "eig_method"}
 # JAX's flags that the port does not take: XLA switches (``--device`` is the
-# port's counterpart) and the sharded paths, which are not ported yet
-UNPORTED_FLAGS = {"--platform", "--num-cpu-devices", "--shard-points"}
+# port's counterpart)
+UNPORTED_FLAGS = {"--platform", "--num-cpu-devices"}
 
 
 @pytest.fixture(scope="module", autouse=True)

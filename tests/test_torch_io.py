@@ -11,7 +11,8 @@ JAX package on the CPU:
   thin prism, dense and with ``--chunk-size``, with ``--covariance`` and
   ``--optimize-distortion 1``, and the same undistorted pinhole model; on a
   BAL file (radial) too;
-- ``--sparse`` runs, and ``--shard-points`` raises ``NotImplementedError``
+- ``--sparse`` runs; ``--shard-points 2`` without a launcher raises,
+  naming torchrun, and with ``--sparse`` raises ``NotImplementedError``
   naming the ROADMAP item that ports it.
 """
 
@@ -248,7 +249,10 @@ def test_bal_unported_options_raise(tmp_path, capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["sparse"] is True and rec["observations"] == int(vis.sum())
     assert rec["ba_iterations"] <= 2 and np.isfinite(rec["reprojection_error"])
-    # the sharded cores are not: --shard-points raises, with --sparse too
-    for extra in ([], ["--sparse"]):
-        with pytest.raises(NotImplementedError, match="item 4d"):
-            tmain(["bal", path, "--shard-points", "2", "--device", "cpu"] + extra)
+    # the sharded dense and chunked cores run under a launcher: two ranks
+    # without one raise, naming torchrun; the sharded sparse core is not
+    # ported, so --sparse --shard-points raises
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        tmain(["bal", path, "--shard-points", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 4d"):
+        tmain(["bal", path, "--shard-points", "2", "--device", "cpu", "--sparse"])

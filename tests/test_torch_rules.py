@@ -104,9 +104,14 @@ def test_sharded_entry_points_default_to_the_card(monkeypatch):
     from mvrecon_tpu_torch.models.bundle_adjustment import BAState
     from mvrecon_tpu_torch.parallel import (
         make_mesh,
+        sharded_ba_covariance,
         sharded_bundle_adjust,
         sharded_bundle_adjust_chunked,
+        sharded_euclidean_reconstruction,
         sharded_lm_step,
+    )
+    from mvrecon_tpu_torch.parallel.sharded_calibration import (
+        sharded_perspective_self_calibration,
     )
     from mvrecon_tpu_torch.runtime.distributed import initialize
 
@@ -121,7 +126,10 @@ def test_sharded_entry_points_default_to_the_card(monkeypatch):
         mesh = make_mesh({"points": 1})
         calls = [lambda: sharded_bundle_adjust(mesh, x, *start),
                  lambda: sharded_bundle_adjust_chunked(mesh, x, *start),
-                 lambda: sharded_lm_step(mesh, x, state, np.ones((20, 4)), np.ones(36), 1e-3)]
+                 lambda: sharded_lm_step(mesh, x, state, np.ones((20, 4)), np.ones(36), 1e-3),
+                 lambda: sharded_ba_covariance(mesh, x, *start),
+                 lambda: sharded_perspective_self_calibration(mesh, x.transpose(1, 0, 2)),
+                 lambda: sharded_euclidean_reconstruction(mesh, x.transpose(1, 0, 2))]
         for call in calls:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()

@@ -1,6 +1,6 @@
-"""Point-sharded bundle adjustment of the PyTorch port on the CPU, in
-float64, against the JAX package's sharded functions and the port's
-unsharded cores.
+"""Point-sharded bundle adjustment, calibration, covariance and
+pipelines of the PyTorch port on the CPU, in float64, against the JAX
+package's sharded functions and the port's unsharded ones.
 
 - In process: ``pad_points`` against JAX's on numpy inputs; the shape
   rules of ``make_mesh``, ``scene_point_mesh`` and
@@ -21,6 +21,17 @@ unsharded cores.
   record that the chunked core took the non-fused build (K1's
   accumulation, one call per chunk and retry) under the axis name, and
   that no collective other than ``all_reduce`` and ``broadcast`` ran.
+- The same two groups run the sharded calibration (dual, its chunked
+  Khatri–Rao branch with ``_KR_CHUNK_BYTES`` lowered inside the ranks,
+  primary on 3 ranks), the sharded perspective pipeline (plain, masked,
+  on a hybrid mesh), the large pipeline with a mesh, the sharded
+  covariance (plain, and masked with Huber and a radial distortion; on 3
+  ranks padded), and the commands ``euclidean``, ``reconstruct`` and
+  ``bal`` (dense and chunked) with ``--shard-points 2`` through
+  ``cli.main``, on files the fixture writes. Calibrations and pipelines
+  are compared up to one global rotation of the frame, taken from camera
+  0 (the eigenvector signs of the two backends' eigensolvers may turn the
+  calibrated frame; JAX's own ``tests/test_parallel.py`` compares so).
 
 Hang guard: each group's ranks run with one torch thread, are killed
 after ``RANK_TIMEOUT_S``, and a rendezvous port that is taken is retried
@@ -30,9 +41,11 @@ rank program never imports it.
 
 from __future__ import annotations
 
+import contextlib
+import io
+import json
 import os
 import pathlib
-import socket
 import subprocess
 import sys
 import time
@@ -45,6 +58,7 @@ from mvrecon_tpu_torch.config import LMConfig
 from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
 from mvrecon_tpu_torch.models import bundle_adjustment as tba
 from mvrecon_tpu_torch.models import bundle_adjustment_chunked as tbc
+from mvrecon_tpu_torch.runtime.distributed import free_port
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 AXIS = "x-up_z-forward"
@@ -67,14 +81,46 @@ CASES = {
                             distortion_rounds=1, distortion_model="opencv")),
     "hybrid": ("dense", "masked", "hybrid", dict(scale_factor=2.0, delta_tol=1e-8, max_iter=6)),
     "lm_step": ("lm_step", "plain", "points", {}),
+    # calibration and pipeline data: the tube with 10 or 8 views cut to 200
+    # points (201 on 3 ranks); "kr" 512 points x 6 views, run with the
+    # Khatri–Rao budget at KR_CHUNK points (``kr_budget``)
+    "calib_dual": ("calib", "tube10", "points", dict(method="dual", tol=1e-2)),
+    "calib_dual_kr": ("calib", "kr", "points", dict(method="dual", tol=1e-2)),
+    "pipeline": ("pipeline", "tube8", "points", dict(max_iter=12)),
+    "pipeline_masked": ("pipeline", "tube8+masked", "points", dict(max_iter=12)),
+    "pipeline_hybrid": ("pipeline", "tube8", "hybrid", dict(max_iter=8)),
+    # the large pipeline's default schedule, cut to 2 iterations
+    "large": ("large", "large", "points", dict(scale_factor=4.0, delta_tol=0.0, max_iter=2,
+                                               accept_divisor=1.0, init_damping=3e-3,
+                                               damping="nielsen")),
+    "covariance": ("covariance", "plain", "points", {}),
+    "covariance_robust": ("covariance", "radial+masked", "points",
+                          dict(robust="huber", huber_delta=0.05)),
+    # commands: argv beside --shard-points 2 --device cpu; {dir} is the
+    # ranks' directory, where the fixture writes tracks.npz and problem.bal
+    "cli_euclidean": ("cli", "none", "points", dict(argv=["euclidean", "--n-images", "8",
+                                                          "--float64"])),
+    "cli_reconstruct": ("cli", "tracks", "points", dict(argv=[
+        "reconstruct", "{dir}/tracks.npz", "--float64", "--output", "{dir}/reconstruct.npz",
+        "--log-json", "{dir}/reconstruct.jsonl"])),
+    "cli_bal": ("cli", "bal", "points", dict(argv=["bal", "{dir}/problem.bal", "--float64",
+                                                   "--max-iter", "10"])),
+    "cli_bal_chunked": ("cli", "bal", "points", dict(argv=[
+        "bal", "{dir}/problem.bal", "--float64", "--max-iter", "8", "--chunk-size", "25"])),
 }
 CASES3 = {
     "dense3": ("dense", "padded", "points",
                dict(scale_factor=2.0, delta_tol=1e-8, max_iter=8, damping="nielsen")),
     "chunked3": ("chunked", "padded", "points",
                  dict(scale_factor=2.0, delta_tol=1e-8, max_iter=8)),
+    "calib_primary3": ("calib", "tube8", "points", dict(method="primary", tol=5e-2)),
+    "covariance3": ("covariance", "padded", "points", {}),
+    "covariance_robust3": ("covariance", "radial+padded", "points",
+                           dict(robust="huber", huber_delta=0.05)),
 }
 GROUPS = {2: CASES, 3: CASES3}
+BA_CORES = ("dense", "chunked", "lm_step")
+KR_CHUNK = 128  # "kr": 256 points a rank, so two chunks a rank, four unsharded
 OTHER_COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_gather_object", "all_to_all",
                      "all_to_all_single", "barrier", "batch_isend_irecv",
                      "broadcast_object_list", "gather", "gather_object", "irecv", "isend",
@@ -87,7 +133,7 @@ def problem(case: str, world: int):
     None, distortion truth or None). The curved tube of the port's
     ``geometry/scenes.py`` (12 views), cut to 201 points (199 for 3
     ranks), X and t perturbed by 0.02 N(0, 1) from a numpy seed."""
-    _, data, _, _ = GROUPS[world][case]
+    data = set(GROUPS[world][case][1].split("+"))
     n = 199 if world == 3 else 201
     sc = make_synthetic_scene(torch.Generator().manual_seed(7), n_images=12, n_slices=11,
                               n_angles=20, dtype=torch.float64, noise=0.003)
@@ -95,18 +141,18 @@ def problem(case: str, world: int):
     x = sc.x.transpose(0, 1)[:n].contiguous()
     nf = x.shape[1]
     truth = None
-    if data in ("radial", "opencv"):
-        truth = np.tile([-0.1, 0.02] if data == "radial" else [-0.1, 0.02, 0.004, -0.003],
+    if data & {"radial", "opencv"}:
+        truth = np.tile([-0.1, 0.02] if "radial" in data else [-0.1, 0.02, 0.004, -0.003],
                         (nf, 1))
         x = tba.distort_points(x, sc.K[:, 0, 0], None, 1.0, torch.from_numpy(truth))
     x = x.numpy().copy()
-    if data == "radial":  # gross outliers for the Huber loss
+    if "radial" in data:  # gross outliers for the Huber loss
         hit = rng.uniform(size=(n, nf)) < 0.02
         x[hit] += 0.2
     vis = None
-    if data == "masked":
+    if "masked" in data:
         vis = (rng.uniform(size=(n, nf)) > 0.15).astype(np.float64)
-    elif data == "padded":
+    elif "padded" in data:
         vis = np.ones((n, nf))
         vis[141:] = 0.0  # the last rank's block is rows 134-200 of the padded 201
     X0 = sc.X.numpy()[:n] + 0.02 * rng.standard_normal((n, 3))
@@ -203,13 +249,225 @@ def run_jax(case: str, world: int) -> dict:
     return result_arrays(jsba.sharded_bundle_adjust_chunked(mesh, *args, chunk_size=CHUNK, **kw))
 
 
+def tube(case: str, world: int):
+    """Observations x (F, P, 2) of a calibration or pipeline case and its
+    visibility (P, F) or None: the tube with 10 or 8 views cut to 200
+    points (201 on 3 ranks), "masked" 15 % unseen; "kr" 512 points x 6
+    views; "large" 400 points x 12 views (``tests/test_torch_pipeline.py``'s
+    size)."""
+    data = GROUPS[world][case][1].split("+")
+    if data[0] == "kr":
+        sc = make_synthetic_scene(torch.Generator().manual_seed(11), n_images=6, n_slices=16,
+                                  n_angles=32, dtype=torch.float64, noise=0.003)
+        return sc.x.numpy(), None
+    if data[0] == "large":
+        sc = make_synthetic_scene(torch.Generator().manual_seed(2), n_images=12, n_slices=20,
+                                  n_angles=20, dtype=torch.float64)
+        return sc.x.numpy(), None
+    sc = make_synthetic_scene(torch.Generator().manual_seed(5), n_images=int(data[0][4:]),
+                              n_slices=11, n_angles=20, dtype=torch.float64)
+    x = sc.x.numpy()[:, :201 if world == 3 else 200]
+    vis = None
+    if "masked" in data:
+        vis = (np.random.default_rng(5).uniform(size=x.shape[1::-1]) > 0.15).astype(np.float64)
+        vis[:, :2] = 1.0
+    return np.ascontiguousarray(x), vis
+
+
+def tracks_file(path):
+    """``cli_reconstruct``'s npz: the 8-view tube's 200 points with three
+    observations moved by 0.08-0.12 and masked out in ``visibility``."""
+    from mvrecon_tpu_torch.runtime import io as tio
+
+    x, _ = tube("pipeline", 2)
+    x = x.copy()
+    vis = np.ones(x.shape[1::-1])
+    for p, f, dx in ((3, 2, 0.10), (11, 4, -0.12), (40, 0, 0.08)):
+        vis[p, f] = 0.0
+        x[f, p] += dx
+    tio.save_observations(str(path), x, visibility=vis)
+
+
+def bal_file(path):
+    """``cli_bal``'s BAL file: the masked BA problem of ``problem``."""
+    from mvrecon_tpu_torch.runtime import io as tio
+
+    x, X0, K, R, t0, vis, _ = problem("hybrid", 2)
+    tio.save_bal(str(path), x.transpose(1, 0, 2), vis, X0, R, t0, K[:, 0, 0])
+
+
+class kr_budget:
+    """Lower the Khatri–Rao budget of ``models.perspective`` to
+    ``KR_CHUNK`` points at the case's F while the block runs, and count
+    the chunked Gram's calls of the sharded dual step."""
+
+    def __init__(self, nf: int):
+        self.nf, self.calls = nf, 0
+
+    def __enter__(self):
+        from mvrecon_tpu_torch.models import perspective as tp
+        from mvrecon_tpu_torch.parallel import sharded_calibration as tsc
+
+        self.saved = tp._KR_CHUNK_BYTES, tsc._kr_gram
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.saved[1](*args, **kwargs)
+
+        tp._KR_CHUNK_BYTES = KR_CHUNK * self.nf * 12 * 8
+        tsc._kr_gram = counted
+        return self
+
+    def __exit__(self, *exc):
+        from mvrecon_tpu_torch.models import perspective as tp
+        from mvrecon_tpu_torch.parallel import sharded_calibration as tsc
+
+        tp._KR_CHUNK_BYTES, tsc._kr_gram = self.saved
+
+
+def _fields(res, keys) -> dict:
+    return {k: np.asarray(getattr(res, k)) for k in keys}
+
+
+CALIB_KEYS = ("X", "R", "t", "K", "depth_error", "depth_iters", "status")
+PIPELINE_KEYS = ("X", "K", "R", "t", "error", "n_iter", "calib_X", "status")
+COV_KEYS = ("point_cov", "camera_cov", "sigma2", "n_obs", "error")
+
+
+def run_port_more(case: str, world: int, mesh=None) -> dict:
+    """A calibration, pipeline or covariance case through the port,
+    sharded over ``mesh`` or unsharded when ``mesh`` is None."""
+    from mvrecon_tpu_torch.models.covariance import ba_covariance
+    from mvrecon_tpu_torch.models.perspective import perspective_self_calibration
+    from mvrecon_tpu_torch.models.pipelines import (
+        euclidean_reconstruction,
+        euclidean_reconstruction_large,
+    )
+    from mvrecon_tpu_torch.parallel import (
+        sharded_ba_covariance,
+        sharded_euclidean_reconstruction,
+    )
+    from mvrecon_tpu_torch.parallel.sharded_calibration import (
+        sharded_perspective_self_calibration,
+    )
+
+    core, data, _, fields = GROUPS[world][case]
+    if core == "covariance":
+        x, X0, K, R, t0, vis, truth = problem(case, world)
+        kw = dict(visibility=vis, axis=AXIS, config=LMConfig(**fields), distortion=truth,
+                  device="cpu")
+        if mesh is None:
+            return _fields(ba_covariance(x, X0, K, R, t0, **kw), COV_KEYS)
+        return _fields(sharded_ba_covariance(mesh, x, X0, K, R, t0, **kw), COV_KEYS)
+    x, vis = tube(case, world)
+    if core == "calib":
+        if mesh is None:
+            return _fields(perspective_self_calibration(x, **fields, device="cpu"), CALIB_KEYS)
+        with kr_budget(x.shape[0]) if data == "kr" else contextlib.nullcontext() as budget:
+            out = _fields(sharded_perspective_self_calibration(mesh, x, **fields, device="cpu"),
+                          CALIB_KEYS)
+        out["kr_gram_calls"] = np.asarray(getattr(budget, "calls", 0))
+        return out
+    if core == "large":
+        res = euclidean_reconstruction_large(x, config=LMConfig(**fields), chunk_size=128,
+                                             mesh=mesh, device="cpu")
+        return {**_fields(res, PIPELINE_KEYS),
+                "retries": np.asarray(res.ba_log["n_solver_retries"])}
+    cfg = LMConfig(scale_factor=2.0, delta_tol=1e-8, **fields)
+    if mesh is None:
+        res = euclidean_reconstruction(x, config=cfg, visibility=vis, device="cpu")
+    else:
+        res = sharded_euclidean_reconstruction(mesh, x, config=cfg, visibility=vis, device="cpu")
+    return _fields(res, PIPELINE_KEYS)
+
+
+def _jax_mesh(world: int, kind: str = "points"):
+    import jax
+
+    from mvrecon_tpu.parallel.mesh import hybrid_scene_point_mesh, make_mesh
+
+    devices = jax.devices()[:world]
+    return (hybrid_scene_point_mesh(1, devices=devices) if kind == "hybrid"
+            else make_mesh({"points": world}, devices=devices))
+
+
+_JAX_MORE: dict = {}
+
+
+def run_jax_more(case: str, world: int) -> dict:
+    """A calibration, pipeline or covariance case through the JAX
+    package's sharded function on a mesh of ``world`` devices (computed
+    once a case)."""
+    if case in _JAX_MORE:
+        return _JAX_MORE[case]
+    import jax.numpy as jnp
+
+    from mvrecon_tpu.config import LMConfig as JLMConfig
+    from mvrecon_tpu.models import perspective as jp
+    from mvrecon_tpu.models.pipelines import euclidean_reconstruction_large
+    from mvrecon_tpu.parallel.pipelines import sharded_euclidean_reconstruction
+    from mvrecon_tpu.parallel.sharded_calibration import sharded_perspective_self_calibration
+    from mvrecon_tpu.parallel.sharded_covariance import sharded_ba_covariance
+
+    core, data, mesh_kind, fields = GROUPS[world][case]
+    mesh = _jax_mesh(world, mesh_kind)
+    if core == "covariance":
+        x, X0, K, R, t0, vis, truth = problem(case, world)
+        res = sharded_ba_covariance(
+            mesh, *(jnp.asarray(a) for a in (x, X0, K, R, t0)), f0=1.0,
+            visibility=None if vis is None else jnp.asarray(vis), axis=AXIS,
+            config=JLMConfig(**fields), distortion=None if truth is None else jnp.asarray(truth))
+        out = _fields(res, COV_KEYS)
+    else:
+        x, vis = tube(case, world)
+        if core == "calib":
+            saved = jp._KR_CHUNK_BYTES
+            if data == "kr":
+                jp._KR_CHUNK_BYTES = KR_CHUNK * x.shape[0] * 12 * 8
+            try:
+                out = _fields(sharded_perspective_self_calibration(mesh, jnp.asarray(x), **fields),
+                              CALIB_KEYS)
+            finally:
+                jp._KR_CHUNK_BYTES = saved
+        elif core == "large":
+            res = euclidean_reconstruction_large(jnp.asarray(x), config=JLMConfig(**fields),
+                                                 chunk_size=128, mesh=mesh)
+            out = {**_fields(res, PIPELINE_KEYS),
+                   "retries": np.asarray(res.ba_log["n_solver_retries"])}
+        else:
+            res = sharded_euclidean_reconstruction(
+                mesh, jnp.asarray(x), config=JLMConfig(scale_factor=2.0, delta_tol=1e-8, **fields),
+                visibility=None if vis is None else jnp.asarray(vis))
+            out = _fields(res, PIPELINE_KEYS)
+    _JAX_MORE[case] = out
+    return out
+
+
+def run_cli(case: str, world: int, outdir: str) -> dict:
+    """A command of ``cli.main`` with ``--shard-points`` ``world`` on the
+    CPU: its standard output (empty but on rank 0), and the size of the
+    largest array that the command moved to its device itself (through
+    ``config.as_tensor``, which the commands import when they run)."""
+    import mvrecon_tpu_torch.config as tconfig
+    from mvrecon_tpu_torch.cli import main
+
+    argv = [a.replace("{dir}", outdir) for a in GROUPS[world][case][3]["argv"]]
+    buf, largest, convert = io.StringIO(), [0], tconfig.as_tensor
+
+    def recorded(a, device, dtype):
+        largest[0] = max(largest[0], int(np.prod(np.shape(a))))
+        return convert(a, device, dtype)
+
+    tconfig.as_tensor = recorded
+    try:
+        with contextlib.redirect_stdout(buf):
+            assert main(argv + ["--shard-points", str(world), "--device", "cpu"]) == 0
+    finally:
+        tconfig.as_tensor = convert
+    return {"stdout": np.asarray(buf.getvalue()), "largest_moved": np.asarray(largest[0])}
+
+
 # ------------------------------------------------------------ the ranks
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _launch(world: int, outdir: pathlib.Path) -> list[dict]:
@@ -220,7 +478,7 @@ def _launch(world: int, outdir: pathlib.Path) -> list[dict]:
         [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     outs = []
     for _ in range(3):
-        port = _free_port()
+        port = free_port()
         procs = [subprocess.Popen([sys.executable, __file__, str(port), str(r), str(world),
                                    str(outdir)], cwd=REPO, env=env, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -251,15 +509,33 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Every case's results on every rank: {world: [rank 0's, ...]}."""
-    return {world: _launch(world, tmp_path_factory.mktemp(f"ranks{world}")) for world in GROUPS}
+    """Every case's results on every rank: {world: [rank 0's, ...]}, and
+    the 2-rank group's directory, which holds the commands' input files
+    and what rank 0 wrote."""
+    out = {}
+    for world in GROUPS:
+        outdir = tmp_path_factory.mktemp(f"ranks{world}")
+        if world == 2:
+            tracks_file(outdir / "tracks.npz")
+            bal_file(outdir / "problem.bal")
+            out["dir"] = outdir
+        out[world] = _launch(world, outdir)
+    return out
 
 
 def _case(outputs: dict, case: str) -> dict:
     return {k.split(".", 1)[1]: v for k, v in outputs.items() if k.startswith(case + ".")}
 
 
-ALL = [(2, c) for c in CASES] + [(3, c) for c in CASES3]
+def _cases(*cores) -> list[tuple[int, str]]:
+    return [(world, c) for world, cases in GROUPS.items() for c, v in cases.items()
+            if v[0] in cores]
+
+
+ALL = _cases(*BA_CORES)
+CALIBS, PIPELINES, COVS = _cases("calib"), _cases("pipeline"), _cases("covariance")
+ARRAYS = _cases(*BA_CORES, "calib", "pipeline", "large", "covariance")
+CLIS = [c for _, c in _cases("cli")]
 
 
 def _assert_close(got: dict, want: dict, case: str):
@@ -283,7 +559,7 @@ def test_sharded_matches_unsharded(ranks, world, case):
     _assert_close(_case(ranks[world][0], case), run_port(case, world), case)
 
 
-@pytest.mark.parametrize("world,case", ALL, ids=[c for _, c in ALL])
+@pytest.mark.parametrize("world,case", ARRAYS, ids=[c for _, c in ARRAYS])
 def test_every_rank_gets_the_global_result(ranks, world, case):
     """SPMD: every rank returns the same global arrays, bit for bit."""
     first = _case(ranks[world][0], case)
@@ -331,6 +607,245 @@ def test_only_all_reduce_and_broadcast(ranks, world):
     for out in ranks[world]:
         assert list(out["meta.other_collectives"]) == []
         assert int(out["meta.all_reduce_calls"]) > 0
+
+
+def _rotation(got: dict, want: dict) -> np.ndarray:
+    """The rotation q taking got's frame to want's, from camera 0."""
+    q = want["R"][0] @ got["R"][0].T
+    np.testing.assert_allclose(q @ q.T, np.eye(3), atol=1e-9)
+    np.testing.assert_allclose(np.linalg.det(q), 1.0, atol=1e-9)
+    return q
+
+
+def _assert_frames_close(got: dict, want: dict, case: str, atol: dict):
+    """R, t and the point sets (``atol``'s other keys) equal up to one
+    global rotation."""
+    q = _rotation(got, want)
+    np.testing.assert_allclose(np.einsum("ij,fjk->fik", q, got["R"]), want["R"], atol=atol["R"],
+                               err_msg=f"{case} R")
+    for key in set(atol) - {"R"}:
+        np.testing.assert_allclose(got[key] @ q.T, want[key], atol=atol[key],
+                                   err_msg=f"{case} {key}")
+
+
+def _assert_calibration_close(got: dict, want: dict, case: str):
+    """JAX's bounds (``tests/test_parallel.py``): the same status and depth
+    iterations, depth error rtol 1e-8, K, R, t, X atol 1e-6."""
+    assert int(got["status"]) == int(want["status"]) == 0, case
+    assert int(got["depth_iters"]) == int(want["depth_iters"]), case
+    np.testing.assert_allclose(got["depth_error"], want["depth_error"], rtol=1e-8, err_msg=case)
+    np.testing.assert_allclose(got["K"], want["K"], atol=1e-6, err_msg=f"{case} K")
+    _assert_frames_close(got, want, case, {"R": 1e-6, "t": 1e-6, "X": 1e-6})
+
+
+@pytest.mark.parametrize("world,case", CALIBS, ids=[c for _, c in CALIBS])
+def test_calibration_matches_jax(ranks, world, case):
+    _assert_calibration_close(_case(ranks[world][0], case), run_jax_more(case, world), case)
+
+
+@pytest.mark.parametrize("world,case", CALIBS, ids=[c for _, c in CALIBS])
+def test_calibration_matches_unsharded(ranks, world, case):
+    _assert_calibration_close(_case(ranks[world][0], case), run_port_more(case, world), case)
+
+
+@pytest.mark.parametrize("world,case", CALIBS, ids=[c for _, c in CALIBS])
+def test_calibration_takes_the_khatri_rao_branch_of_its_block(ranks, world, case):
+    """The dual step builds the Khatri–Rao factor in chunks when the rank's
+    own point count is above the budget ("kr": 256 points a rank, 128
+    a chunk), and whole otherwise."""
+    for out in ranks[world]:
+        calls = int(out[f"{case}.kr_gram_calls"])
+        if case == "calib_dual_kr":
+            assert calls == int(out[f"{case}.depth_iters"]) > 0
+        else:
+            assert calls == 0
+
+
+def _assert_pipeline_close(got: dict, want: dict, case: str, e_rtol: float = 1e-7):
+    """JAX's bounds: error rtol 1e-7, X atol 1e-6, R atol 1e-7; the same
+    status and BA iterations; the calibration's X and t to 1e-6."""
+    assert int(got["status"]) == int(want["status"]) == 0, case
+    assert int(got["n_iter"]) == int(want["n_iter"]), case
+    np.testing.assert_allclose(got["error"], want["error"], rtol=e_rtol, err_msg=case)
+    _assert_frames_close(got, want, case, {"R": 1e-7, "t": 1e-6, "X": 1e-6, "calib_X": 1e-6})
+
+
+@pytest.mark.parametrize("world,case", PIPELINES, ids=[c for _, c in PIPELINES])
+def test_pipeline_matches_jax(ranks, world, case):
+    _assert_pipeline_close(_case(ranks[world][0], case), run_jax_more(case, world), case)
+
+
+@pytest.mark.parametrize("world,case", PIPELINES, ids=[c for _, c in PIPELINES])
+def test_pipeline_matches_unsharded(ranks, world, case):
+    _assert_pipeline_close(_case(ranks[world][0], case), run_port_more(case, world), case)
+
+
+def test_large_pipeline_with_a_mesh_matches_jax(ranks):
+    """``euclidean_reconstruction_large(mesh=)``: the sharded calibration,
+    then the unsharded chunked BA on every rank, against JAX's with
+    ``mesh=make_mesh({"points": 2})``: the same status, iterations and
+    retries, E to 1e-6 (``tests/test_torch_pipeline.py``'s bound), and
+    the fused build, not K1's, in the BA."""
+    got, want = _case(ranks[2][0], "large"), run_jax_more("large", 2)
+    assert int(got["status"]) == int(want["status"]) == 0
+    assert int(got["n_iter"]) == int(want["n_iter"])
+    assert int(got["retries"]) == int(want["retries"])
+    np.testing.assert_allclose(got["error"], want["error"], rtol=1e-6)
+    assert int(got["fused_builds"]) > 0 and int(got["k1_calls"]) == 0
+
+
+def _assert_covariance_close(got: dict, want: dict, case: str):
+    """JAX's bounds (``tests/test_covariance.py``): blocks rtol 2e-6,
+    sigma2 rtol 1e-10, the same n_obs."""
+    assert got["point_cov"].shape == want["point_cov"].shape
+    for key in ("point_cov", "camera_cov"):
+        np.testing.assert_allclose(got[key], want[key], rtol=2e-6, atol=1e-15,
+                                   err_msg=f"{case} {key}")
+    np.testing.assert_allclose(got["sigma2"], want["sigma2"], rtol=1e-10, err_msg=case)
+    np.testing.assert_allclose(got["error"], want["error"], rtol=1e-10, err_msg=case)
+    assert int(got["n_obs"]) == int(want["n_obs"]), case
+
+
+@pytest.mark.parametrize("world,case", COVS, ids=[c for _, c in COVS])
+def test_covariance_matches_jax(ranks, world, case):
+    _assert_covariance_close(_case(ranks[world][0], case), run_jax_more(case, world), case)
+
+
+@pytest.mark.parametrize("world,case", COVS, ids=[c for _, c in COVS])
+def test_covariance_matches_unsharded(ranks, world, case):
+    _assert_covariance_close(_case(ranks[world][0], case), run_port_more(case, world), case)
+
+
+def _record(out: dict, case: str) -> dict:
+    lines = str(out[f"{case}.stdout"]).strip().splitlines()
+    assert len(lines) == 1, lines
+    return json.loads(lines[0])
+
+
+@pytest.mark.parametrize("case", CLIS)
+def test_rank_0_alone_prints(ranks, case):
+    """Under ``--shard-points`` rank 0 prints the one record, with
+    ``shard_points``; the other rank prints nothing."""
+    assert _record(ranks[2][0], case)["shard_points"] == 2
+    assert str(ranks[2][1][f"{case}.stdout"]) == ""
+
+
+@pytest.mark.parametrize("case", ["cli_reconstruct", "cli_bal", "cli_bal_chunked"])
+def test_sharded_commands_leave_the_observations_on_the_host(ranks, case):
+    """Under ``--shard-points`` no rank moves the whole (P, F) observations
+    or visibility to its device: the command hands host arrays to the
+    sharded entry points, which copy only the rank's block. ``bal`` moves
+    its cameras, which shows that the recording sees the command's moves."""
+    rec = _record(ranks[2][0], case)
+    npts, nf = ((rec["n_points"], rec["n_views"]) if case == "cli_reconstruct"
+                else (rec["points"], rec["cams"]))
+    for rank in ranks[2]:
+        moved = int(rank[f"{case}.largest_moved"])
+        assert moved < npts * nf
+        assert moved > 0 or case == "cli_reconstruct"
+
+
+def test_cli_euclidean_matches_unsharded(ranks, capsys):
+    """``euclidean --shard-points 2`` against the unsharded command: the
+    same status and BA iterations, E to 1e-8, JAX's record keys."""
+    from mvrecon_tpu_torch.cli import main
+
+    got = _record(ranks[2][0], "cli_euclidean")
+    main(CASES["cli_euclidean"][3]["argv"] + ["--device", "cpu"])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (got["status"], got["ba_iterations"]) == (want["status"], want["ba_iterations"])
+    np.testing.assert_allclose(got["reprojection_error"], want["reprojection_error"], rtol=1e-8)
+    assert {"command", "status", "ba_iterations", "reprojection_error", "n_points",
+            "shard_points"} <= set(got)
+    assert set(got["stage_walls_s"]) == {"sharded_perspective_self_calibration",
+                                         "sharded_bundle_adjustment"}
+
+
+def test_cli_reconstruct_matches_jax(ranks):
+    """``reconstruct --shard-points 2`` on an npz against JAX's
+    ``sharded_euclidean_reconstruction`` on the same arrays (the mask to BA
+    only): the same status and iterations, E rtol 1e-7, the X that rank 0
+    wrote to ``--output`` atol 1e-6 up to the frame's rotation; the
+    ``--log-json`` file holds rank 0's record alone."""
+    import jax.numpy as jnp
+
+    from mvrecon_tpu.config import LMConfig as JLMConfig
+    from mvrecon_tpu.parallel.pipelines import sharded_euclidean_reconstruction
+
+    rec = _record(ranks[2][0], "cli_reconstruct")
+    d = np.load(ranks["dir"] / "tracks.npz")
+    res = sharded_euclidean_reconstruction(
+        _jax_mesh(2), jnp.asarray(d["x"]),
+        config=JLMConfig(scale_factor=2.0, delta_tol=1e-8, max_iter=100),
+        visibility=jnp.asarray(d["visibility"]))
+    assert rec["status"] == int(res.status) == 0
+    assert rec["ba_iterations"] == int(res.n_iter)
+    np.testing.assert_allclose(rec["reprojection_error"], float(res.error), rtol=1e-7)
+    assert (rec["n_points"], rec["n_views"], rec["n_visible"]) == (200, 8, 200 * 8 - 3)
+    out = np.load(ranks["dir"] / "reconstruct.npz")
+    _assert_frames_close({k: out[k] for k in ("X", "R", "t")},
+                         {k: np.asarray(getattr(res, k)) for k in ("X", "R", "t")},
+                         "reconstruct", {"R": 1e-7, "t": 1e-6, "X": 1e-6})
+    logged = (ranks["dir"] / "reconstruct.jsonl").read_text().strip().splitlines()
+    assert [json.loads(line) for line in logged] == [rec]
+
+
+@pytest.mark.parametrize("case", ["cli_bal", "cli_bal_chunked"])
+def test_cli_bal_matches_jax(ranks, capsys, case):
+    """``bal --shard-points 2`` (dense, and chunked with ``--chunk-size``)
+    against the JAX package's command with the same flags, which runs
+    ``sharded_bundle_adjust(_chunked)`` on a points mesh of 2 devices:
+    the same iterations and counts, E rtol 1e-8."""
+    from mvrecon_tpu.cli import main as jmain
+
+    got = _record(ranks[2][0], case)
+    argv = [a.replace("{dir}", str(ranks["dir"])) for a in CASES[case][3]["argv"]]
+    jmain(argv + ["--shard-points", "2"])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("cams", "points", "observations", "ba_iterations", "shard_points"):
+        assert got[key] == want[key], key
+    np.testing.assert_allclose(got["reprojection_error"], want["reprojection_error"], rtol=1e-8)
+
+
+def _command(args: list, torchrun: bool = False) -> subprocess.CompletedProcess:
+    """``python -m mvrecon_tpu_torch ARGS`` (under torchrun, standalone) in
+    a process of its own, with none of torchrun's variables inherited."""
+    from mvrecon_tpu_torch.runtime.distributed import TORCHRUN_VARS
+
+    env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_VARS}
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    env["OMP_NUM_THREADS"] = "1"
+    launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2"]
+    return subprocess.run([sys.executable] + (launcher if torchrun else [])
+                          + ["-m", "mvrecon_tpu_torch"] + args, cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+
+
+def test_shard_points_one_runs_alone():
+    """``--shard-points 1`` with no launcher forms a one-rank group."""
+    run = _command(["euclidean", "--n-images", "6", "--shard-points", "1", "--device", "cpu",
+                    "--float64"])
+    assert run.returncode == 0, run.stderr
+    rec = json.loads(run.stdout.strip().splitlines()[-1])
+    assert rec["shard_points"] == 1 and rec["status"] == 0
+
+
+def test_shard_points_two_needs_a_launcher():
+    """``--shard-points 2`` with no launcher fails and names torchrun."""
+    run = _command(["euclidean", "--shard-points", "2", "--device", "cpu"])
+    assert run.returncode != 0 and run.stdout == ""
+    assert "torchrun --nproc-per-node 2 -m mvrecon_tpu_torch" in run.stderr
+
+
+def test_torchrun_runs_a_sharded_command():
+    """Under ``torchrun --nproc-per-node 2`` each rank joins from
+    torchrun's variables, and one record is printed."""
+    run = _command(["euclidean", "--n-images", "6", "--shard-points", "2", "--device", "cpu",
+                    "--float64"], torchrun=True)
+    assert run.returncode == 0, run.stderr
+    recs = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    assert len(recs) == 1 and recs[0]["shard_points"] == 2 and recs[0]["status"] == 0
 
 
 # ------------------------------------------------------------ in process
@@ -413,11 +928,14 @@ def test_process_meshes_match_jax(fake_world):
 def test_axis_name_errors():
     """An axis name no sharded call binds raises ``ValueError``, as do
     lanes under an axis name; the sparse core's ``axis_name``, the solver
-    hook, ``euclidean_reconstruction_large(mesh=)`` and ``bal
-    --shard-points`` raise ``NotImplementedError`` naming their slice."""
+    hook and ``bal --sparse --shard-points`` raise ``NotImplementedError``
+    naming item 4d, ``affine --shard-points`` and
+    ``sharded_affine_reconstruction`` naming item 4c.
+    (``euclidean_reconstruction_large(mesh=)`` and ``bal --shard-points``
+    run: the ``large`` and ``cli_bal`` cases.)"""
     from mvrecon_tpu_torch.__main__ import main
     from mvrecon_tpu_torch.models.bundle_adjustment_sparse import lm_optimize_sparse
-    from mvrecon_tpu_torch.models.pipelines import euclidean_reconstruction_large
+    from mvrecon_tpu_torch.parallel.pipelines import sharded_affine_reconstruction
 
     x, X0, K, R, t0, _, _ = problem("dense", 2)
     (X, f, u, t, Rn), xs, vs, free = step_inputs(x, X0, R, t0)
@@ -432,10 +950,30 @@ def test_axis_name_errors():
         lm_optimize_sparse(None, state, targs[3], 1.0, LMConfig(), axis_name="points")
     with pytest.raises(NotImplementedError, match="item 4d"):
         tba.lm_optimize(*targs, LMConfig(), solver=tba._damped_solve)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        euclidean_reconstruction_large(x.transpose(1, 0, 2), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 4d"):
-        main(["bal", "unused.bal", "--shard-points", "2", "--device", "cpu"])
+        main(["bal", "unused.bal", "--sparse", "--shard-points", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        main(["affine", "--shard-points", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        sharded_affine_reconstruction(None, x.transpose(1, 0, 2), np.ones(12))
+
+
+def test_calibration_rejects_an_indivisible_point_count(fake_world):
+    """P must divide by the points-axis size: no mask can neutralize
+    padding in the Gram (JAX's ``ValueError``)."""
+    from mvrecon_tpu_torch.parallel.mesh import make_mesh
+    from mvrecon_tpu_torch.parallel.pipelines import sharded_euclidean_reconstruction
+    from mvrecon_tpu_torch.parallel.sharded_calibration import (
+        sharded_perspective_self_calibration,
+    )
+
+    mesh, x = make_mesh({"points": 4}), np.zeros((4, 201, 2))
+    with pytest.raises(ValueError, match="divisible"):
+        sharded_perspective_self_calibration(mesh, x, device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        sharded_euclidean_reconstruction(mesh, x, device="cpu")
+    with pytest.raises(ValueError, match="unknown method"):
+        sharded_perspective_self_calibration(mesh, x[:, :200], method="svd", device="cpu")
 
 
 def test_initialize_backend_rules():
@@ -526,9 +1064,14 @@ def _rank_main(port: int, rank: int, world: int, outdir: str) -> None:
         block.shape == (5, 2)
         and np.array_equal(gather_array(meshes["points"], block, ("points",)).numpy(), arr)
         and np.array_equal(replicate_array(meshes["points"], arr, "cpu").numpy(), arr))}
-    for case, (_, _, mesh_kind, _) in GROUPS[world].items():
+    for case, (core, _, mesh_kind, _) in GROUPS[world].items():
         counts.update(k1=0, fused=0)
-        res = run_port(case, world, meshes[mesh_kind])
+        if core == "cli":
+            res = run_cli(case, world, outdir)
+        elif core in BA_CORES:
+            res = run_port(case, world, meshes[mesh_kind])
+        else:
+            res = run_port_more(case, world, meshes[mesh_kind])
         res.update(k1_calls=counts["k1"], fused_builds=counts["fused"])
         out.update({f"{case}.{k}": v for k, v in res.items()})
     n_pad = 199 if world == 3 else 201
