@@ -176,6 +176,30 @@ Phases, each of which stops the script with a non-zero exit on failure:
    4x's float64 ``reconstruct`` with ``--covariance`` (in 4x) and 4t's
    fisheye ``bal --chunk-size 768`` (in 4t; K1 launches == retries x
    chunks);
+5h. ``sharded_bundle_adjust_sparse`` (``parallel/sharded_ba_sparse.py``)
+   on 4u's list, written once by the script into the ranks' directory
+   (1M points x 1,600 cameras x 10M observations, 4u's configuration),
+   on the NCCL rank (E, retries and CG iterations equal to 4u's) and on
+   the two ranks (E within 1e-4 of 4u's, the ranks equal); aligned RMSE
+   < 0.05, no launch; retries, CG iterations, wall, peak memory a rank,
+   the all-reduce's bytes and ms a retry and a CG iteration;
+5i. ``sharded_affine_reconstruction`` on 4h's 10k x 100 paraperspective
+   scene at one rank and two: status 0, E / floor < 1.5, E within
+   ``SHARDED_AFFINE_E_RTOL`` of ``affine_reconstruction`` on the same
+   scene, the ranks equal, no launch; the sharded calibration's S and R
+   within ``SHARDED_AFFINE_CALIB_GAP`` of the unsharded one's (float32
+   Gram eigh against SVD); ``shard_scenes`` of 4f's batch at
+   one rank (every scene equal to 4f's) and two (each rank its half);
+5j. two-rank commands inside the ranks' process group (``cli.main`` with
+   ``--shard-points 2``): ``euclidean`` and ``affine`` at 10k x 100 in
+   float64, 4t's fisheye ``bal --chunk-size 768`` (K1 under the
+   all-reduce: a positive multiple of the chunks a rank) and ``bal
+   --sparse`` on 4w's BAL file in float64; rank 0's record against the
+   same command at one rank (5g's for ``bal``, new runs for the others),
+   E within ``SHARDED_CLI_E_RTOLS``; rank 1 prints nothing; ``bal
+   --sparse``'s list through ``sharded_bundle_adjust_sparse`` at cg_tol
+   1e-12 at one rank and two: E within 1e-10, the same iterations and
+   retries, CG counts within 5 %;
 5. the pipelines and the BA cores on small scenes on the card and on the
    CPU (plain versions), which must agree, the streamed core on the card
    with prefetch 0 and 2, which must agree bit for bit, both batched
@@ -193,26 +217,33 @@ Phases, each of which stops the script with a non-zero exit on failure:
 ``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r, 4e, 4y's chunked run,
 5a-5b and 5d (``--ba-iters`` sets the BA iterations of 4, 4e and 5d),
 ``--streamed-points`` phases 4b, 4l, 4j, 4p and 4s, ``--dense-points``
-phases 4c, 4d, 4k's second run, 4x, 4y's dense runs, 5c, 5e and 5f,
-``--bal-points`` phases 4m, 4q, 4t, 4w and 4z's
-``BundleAdjuster`` (below 20k points it may take the dense core, and the
-launch check follows its choice), ``--sparse-points`` 4u and 4v, and
-``--batched-scenes`` phases 4f-4h for a quick run; the views and the
-chunks stay the main paths', so the kernel checks keep their shapes.
+phases 4c, 4d, 4k's second run, 4x, 4y's dense runs, 5c, 5e, 5f, 5i and
+5j's ``euclidean`` and ``affine``, ``--bal-points`` phases 4m, 4q, 4t, 4w,
+5j's ``bal`` runs and 4z's ``BundleAdjuster`` (below 20k points it may
+take the dense core, and the launch check follows its choice),
+``--sparse-points`` 4u, 4v and 5h, and ``--batched-scenes`` phases 4f-4h
+and 5i's ``shard_scenes`` for a quick run; the views and the chunks stay
+the main paths', so the kernel checks keep their shapes.
+
+The point-sharded phases 5a-5j run after 4z, from one one-rank NCCL group
+and one launch of two rank processes.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import inspect
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -338,6 +369,39 @@ SHARDED_LARGE_E_RTOL = 1e-4
 SHARDED_PIPELINE_E_RTOL = 3e-4
 SHARDED_COV_RTOL = 2e-6
 SHARDED_CLI_E_RTOL = 1e-6
+# Phases 5h-5j. 5h: one rank repeats 4u's arithmetic (the partition at one
+# rank is the identity), so E, retries and CG iterations must equal 4u's;
+# two ranks sum each rank's half of the list apart, the same operator in
+# another summation order, held as 4v holds recompute against stored (on
+# the H100, a probe of 4u and 5h-5j, E came equal to 4u's to the digit,
+# after 12 retries and 387 CG iterations against 4u's 10 and 308). 5i:
+# the sharded affine calibration eighs the all-reduced float32 (2F, 2F)
+# Gram where the unsharded one takes the SVD of W, which squares W's
+# condition, so S and R differ by more than rounding: on the H100, in
+# three runs of the same scene (deterministic), S by 5.65e-5-5.85e-5 of its
+# largest entry and R by 6.2e-5-1.30e-4, E after BA by 1.0e-6 (one rank)
+# and 2.1e-6 (two) from the unsharded pipeline's; the limits are about ten
+# times the largest reading. 5j, two ranks against one: ``euclidean`` and
+# ``affine`` in float64 hold 5g's 1e-6 (0.0 in the probe); the float32
+# chunked ``bal`` holds 5b's two-rank limit (2.1e-7). ``bal --sparse``
+# stops CG at cg_tol 1e-2 on a residual test that the reordered sums move,
+# so its count and step part from the one-rank run's once the iterates
+# near the optimum (on the H100 its last segment took 487 CG iterations at
+# two ranks against 333 at one, E 1.2077e-6 apart, the same in two runs):
+# held at about ten times that reading. The same list, start and
+# config at cg_tol 1e-12 (``SHARDED_SPARSE_TIGHT``), where CG runs to the
+# rounding floor, holds the operator itself: E within 1e-10, iterations
+# and retries equal, CG counts within 5 % (the count at 1e-12 still moves
+# with the summation order, as ``tests/test_torch_sparse.py`` notes).
+SHARDED_SPARSE_E_RTOL = 1e-4
+SHARDED_CLI_SPARSE_E_RTOL = 1e-5
+SHARDED_SPARSE_TIGHT = dict(cg_tol=1e-12, cg_max_iter=500)
+SHARDED_SPARSE_TIGHT_E_RTOL = 1e-10
+SHARDED_SPARSE_TIGHT_CG_RTOL = 0.05
+SHARDED_AFFINE_E_RTOL = 2e-5
+SHARDED_AFFINE_CALIB_GAP = 1e-3
+SHARDED_CLI_E_RTOLS = {"euclidean": SHARDED_CLI_E_RTOL, "affine": SHARDED_CLI_E_RTOL,
+                       "bal": SHARDED_E_RTOL_TWO_RANKS, "bal_sparse": SHARDED_CLI_SPARSE_E_RTOL}
 BAL_WINDOW = 20  # 4m, scripts/bench_bal.py: each point seen by 20 consecutive of 100 views
 BAL_OUTLIER_SHARE = 0.02  # ... 2 % of the visible observations moved by 0.5 N(0, 1)
 BAL_OUTLIER_SCALE = 0.5
@@ -1641,15 +1705,18 @@ def per_retry(rec: dict, n_chunks: int) -> None:
 
 
 def sharded_rank(args) -> int:
-    """One of phases 5b-5f's two ranks, a process of its own on the one
+    """One of phases 5b-5j's two ranks, a process of its own on the one
     card (``--sharded-rank``): it joins a two-rank group with gloo named
     for CUDA tensors (NCCL takes one rank a card), draws 4o's and 4c's
     problems in host memory from their seeds, runs
     ``sharded_bundle_adjust_chunked`` on the first and
     ``sharded_bundle_adjust`` on the second (5b, 5c), the sharded
     covariance of that result (5f), the sharded pipeline on 4c's
-    observations (5e) and the large pipeline with the mesh on phase 4's
-    scene (5d), and writes its records and results to
+    observations (5e), the large pipeline with the mesh on phase 4's
+    scene (5d), the sharded sparse core on 4u's list from the ranks'
+    directory (5h), the sharded affine pipeline on 4h's 10k x 100 scene
+    and its half of 4f's batch by ``shard_scenes`` (5i) and the two-rank
+    commands (5j), and writes its records and results to
     ``--sharded-out``."""
     import torch
     import torch.distributed as dist
@@ -1699,31 +1766,42 @@ def sharded_rank(args) -> int:
         l_rec, out["large_X"] = sharded_large(torch, fs, sy, mesh, scene,
                                               north_star_config(LMConfig, args.ba_iters))
         del scene
-        out["records"] = np.array(json.dumps({"chunked": rec, "dense": d_rec, "covariance": cov_rec,
-                                              "pipeline": p_rec, "large": l_rec}))
+        torch.cuda.empty_cache()
+        # 5h on 4u's list; 5i on 4h's scene and 4f's batch; 5j's commands
+        h_rec, out["sparse_X"] = sharded_sparse(torch, fs, sy, mesh,
+                                                os.path.join(args.sharded_out, "sparse.npz"))
+        torch.cuda.empty_cache()
+        i_rec, out["affine_X"] = sharded_affine(torch, fs, sy, mesh,
+                                                affine_scene_host(torch, args.dense_points))
+        i_rec["shard_scenes"] = scenes_block(torch, make_mesh({"scenes": world}),
+                                             args.batched_scenes)
+        argvs = sharded_cli_argv(args.sharded_out, args.dense_points)
+        j_rec = sharded_commands(torch, fs, sy, argvs, world)
+        out["records"] = np.array(json.dumps({
+            "chunked": rec, "dense": d_rec, "covariance": cov_rec, "pipeline": p_rec,
+            "large": l_rec, "sparse": h_rec, "affine": i_rec, "commands": j_rec,
+            "sparse_tight": sparse_tight(torch, mesh, argvs["bal_sparse"])}))
         np.savez(f"{args.sharded_out}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def launch_sharded_ranks(args) -> list[dict]:
+def launch_sharded_ranks(args, rank_dir: str) -> list[dict]:
     """Start ``SHARDED_RANKS`` ranks of this script (``sharded_rank``), each
-    with its output in a file; stop them all when one fails or after
+    with its output in a file of ``rank_dir`` (which holds the inputs of
+    5h and 5j); stop them all when one fails or after
     ``SHARDED_RANK_TIMEOUT_S``; fail unless each exits 0. Returns each
     rank's arrays and records."""
-    import shutil
-    import tempfile
-
     from mvrecon_tpu_torch.runtime.distributed import free_port
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     port = free_port()
-    logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(SHARDED_RANKS)]
+    logs = [open(f"{rank_dir}/rank{r}.log", "w") for r in range(SHARDED_RANKS)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r), "--sharded-port", str(port),
-         "--sharded-out", tmp, "--points", str(args.points), "--ba-iters", str(args.ba_iters),
-         "--dense-points", str(args.dense_points)],
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r), "--sharded-port",
+         str(port), "--sharded-out", rank_dir, "--points", str(args.points), "--ba-iters",
+         str(args.ba_iters), "--dense-points", str(args.dense_points), "--batched-scenes",
+         str(args.batched_scenes)],
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(SHARDED_RANKS)]
     deadline = time.monotonic() + SHARDED_RANK_TIMEOUT_S
     try:
@@ -1741,17 +1819,15 @@ def launch_sharded_ranks(args) -> list[dict]:
     codes = [p.returncode for p in procs]
     if codes != [0] * SHARDED_RANKS:
         for r in range(SHARDED_RANKS):
-            with open(f"{tmp}/rank{r}.log") as f:
+            with open(f"{rank_dir}/rank{r}.log") as f:
                 print(f"rank {r} (exit {codes[r]}):\n" + f.read()[-4000:], file=sys.stderr)
-        shutil.rmtree(tmp, ignore_errors=True)
         check(False, f"sharded ranks exited {codes} (timeout {SHARDED_RANK_TIMEOUT_S} s)")
     outs = []
     for r in range(SHARDED_RANKS):
-        with np.load(f"{tmp}/rank{r}.npz") as z:
+        with np.load(f"{rank_dir}/rank{r}.npz") as z:
             out = {k: z[k] for k in z.files}
         out["records"] = json.loads(str(out["records"]))
         outs.append(out)
-    shutil.rmtree(tmp, ignore_errors=True)
     return outs
 
 
@@ -1915,11 +1991,269 @@ def check_sharded_covariance(rec: dict, name: str) -> None:
               f"{r['sigma2_rel_diff']:.3e}, sigma / true {r['sigma_vs_true']:.5f}")
 
 
+def write_sparse_list(prob, path: str) -> None:
+    """5h's input, written once: 4u's observation list, start and truth
+    as host arrays in one npz, which every rank of 5h reads (each copies
+    only its block of the list to its card)."""
+    obs, X_gt, X0, K, R, t0, _ = prob
+    np.savez(path, point_idx=obs.point_idx.cpu().numpy(), cam_idx=obs.cam_idx.cpu().numpy(),
+             xy=obs.xy.cpu().numpy(), X_gt=X_gt.cpu().numpy(), X0=X0.cpu().numpy(),
+             K=K.cpu().numpy(), R=R.cpu().numpy(), t0=t0.cpu().numpy())
+
+
+def sharded_sparse(torch, fs, sy, mesh, path: str) -> tuple[dict, np.ndarray]:
+    """Phase 5h on this rank: ``sharded_bundle_adjust_sparse`` with 4u's
+    configuration on 4u's list read from ``path`` (host arrays; the rank
+    copies its block of the partition), its wall, peak memory, launches,
+    CUDA-event spans and all-reduces (float32): the matvec's (9F,) one a
+    CG iteration apart from the others a retry. Returns (record, X on the
+    host)."""
+    import torch.distributed as dist
+
+    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
+    from mvrecon_tpu_torch.parallel.sharded_ba_sparse import sharded_bundle_adjust_sparse
+    from mvrecon_tpu_torch.runtime.profiling import EventTimer
+
+    with np.load(path) as z:
+        d = {k: z[k] for k in z.files}
+    nf, n_obs = d["K"].shape[0], d["point_idx"].shape[0]
+    timer = EventTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    reset_launch_counts(fs, sy)
+    with timed_allreduces(torch) as ar:
+        t0 = time.perf_counter()
+        res = sharded_bundle_adjust_sparse(
+            mesh, d["point_idx"], d["cam_idx"], d["xy"], d["X0"], d["K"], d["R"], d["t0"],
+            axis="x-up_z-forward", config=sparse_config(), cg_tol=1e-2,
+            cg_max_iter=SPARSE_CG_MAX, timer=timer)
+        err = float(res.error)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts(fs, sy)
+    sizes = ar["sizes"]
+    mv = [ms for numel, ms in sizes if numel == 9 * nf]
+    # a retry's other all-reduces: all but the first (the start E, which
+    # also sets up the communicator) and the last (the gather of X)
+    per_retry = [(numel, ms) for numel, ms in sizes[1:-1] if numel != 9 * nf]
+    retries = res.log["n_solver_retries"]
+    spans = timer.ms()
+    rec = {
+        "ranks": dist.get_world_size(), "backend": dist.get_backend(),
+        "points": d["X0"].shape[0], "cams": nf, "observations": n_obs, "wall_s": wall,
+        "n_iter": res.n_iter, "retries": retries, "cg_iters_total": res.log["cg_iters_total"],
+        "converged": res.log["converged"], "weighted_E": err,
+        "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+        "allreduce_calls": ar["calls"], "allreduce_bytes": ar["bytes"],
+        "allreduce_ms": ar["ms"], "allreduce_ms_first_call": ar["first_ms"],
+        "matvec_allreduces": len(mv), "matvec_allreduce_bytes": 9 * nf * 4,
+        "matvec_allreduce_ms_median": statistics.median(mv) if mv else None,
+        "matvec_ms_median": statistics.median(spans["matvec"]),
+        "allreduce_bytes_per_retry": sum(n for n, _ in per_retry) * 4 / retries,
+        "allreduce_ms_per_retry": sum(ms for _, ms in per_retry) / retries,
+        "gather_allreduce_bytes": sizes[-1][0] * 4, "gather_allreduce_ms": sizes[-1][1],
+        "spans": span_summary(spans),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_over_start_gb": (torch.cuda.max_memory_allocated() - start_bytes) / 1e9,
+        "aligned_rmse_vs_gt": float(aligned_rmse(res.X, torch.as_tensor(d["X_gt"],
+                                                                         device="cuda"))),
+        "finite": math.isfinite(err) and finite(torch, res.X, res.K, res.R, res.t),
+    }
+    return rec, res.X.cpu().numpy()
+
+
+def check_sharded_sparse(rec: dict, sparse_rec: dict, name: str) -> None:
+    """5h's checks of one rank's record against 4u's: finite, no launch,
+    aligned RMSE below 0.05; at one rank E, retries and CG iterations
+    equal to 4u's, at two E within ``SHARDED_SPARSE_E_RTOL``."""
+    rec["E_rel_diff_vs_4u"] = (abs(rec["weighted_E"] - sparse_rec["weighted_E"])
+                               / sparse_rec["weighted_E"])
+    check(rec["finite"], f"{name}: an output is not finite")
+    check((rec["syrk_acc_launches"], rec["syrk_lower_launches"]) == (0, 0),
+          f"{name}: a SYRK kernel launched")
+    check(rec["aligned_rmse_vs_gt"] < 0.05,
+          f"{name}: aligned RMSE {rec['aligned_rmse_vs_gt']:.5f}")
+    if rec["ranks"] == 1:
+        same = (rec["weighted_E"], rec["retries"], rec["cg_iters_total"]) == (
+            sparse_rec["weighted_E"], sparse_rec["retries"], sparse_rec["cg_iters_total"])
+        check(same, f"{name}: E, retries, CG iterations {rec['weighted_E']}, {rec['retries']}, "
+              f"{rec['cg_iters_total']} against 4u's {sparse_rec['weighted_E']}, "
+              f"{sparse_rec['retries']}, {sparse_rec['cg_iters_total']}")
+    else:
+        check(rec["E_rel_diff_vs_4u"] <= SHARDED_SPARSE_E_RTOL,
+              f"{name}: E differs from 4u's by {rec['E_rel_diff_vs_4u']:.3e}")
+
+
+def affine_scene_host(torch, dense_points: int) -> np.ndarray:
+    """4h's 10k x 100 scene (``batched_phases``, seed 13): x (F, P, 2)."""
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return make_synthetic_scene(gen, n_images=DENSE_VIEWS, n_slices=dense_points // 20,
+                                n_angles=20, dtype=torch.float32).x.cpu().numpy()
+
+
+def affine_config():
+    """4h's affine configuration."""
+    from mvrecon_tpu_torch.config import LMConfig
+
+    return LMConfig(scale_factor=2.0, delta_tol=1e-8, max_iter=50)
+
+
+def sharded_affine(torch, fs, sy, mesh, x_fp: np.ndarray) -> tuple[dict, np.ndarray]:
+    """Phase 5i on this rank: ``sharded_affine_reconstruction``
+    (paraperspective, f = 1, 4h's configuration) of host observations x_fp
+    (F, P, 2), its wall, stages and launches; then the calibration alone
+    (``sharded_affine_self_calibration``) and its largest gaps to
+    ``affine_self_calibration(canonical_signs=True)`` on the same
+    observations: S's over S's largest entry, R's as they are. Returns
+    (record, X)."""
+    import torch.distributed as dist
+
+    from mvrecon_tpu_torch.models.affine import affine_self_calibration
+    from mvrecon_tpu_torch.parallel import (
+        sharded_affine_reconstruction,
+        sharded_affine_self_calibration,
+    )
+    from mvrecon_tpu_torch.runtime.profiling import StageTimer
+
+    nf, npts = x_fp.shape[:2]
+    f = np.ones(nf, np.float32)
+    torch.cuda.synchronize()
+    reset_launch_counts(fs, sy)
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    res = sharded_affine_reconstruction(mesh, x_fp, f, config=affine_config(), timer=timer)
+    err = float(res.error)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(fs, sy)
+    S, R, ok = sharded_affine_self_calibration(mesh, x_fp, f=f)
+    S_u, R_u = affine_self_calibration(x_fp, f=f, canonical_signs=True)
+    rec = {"ranks": dist.get_world_size(), "points": npts, "views": nf, "wall_s": wall,
+           "stage_walls_s": timer.times, "status": res.status, "ba_n_iter": res.n_iter,
+           "reprojection_error": err, "E_vs_noise_floor": err / (npts * nf * 2 * NOISE**2),
+           "syrk_acc_launches": launches[0], "syrk_lower_launches": launches[1],
+           "calibration_ok": bool(ok),
+           "S_gap_vs_unsharded": float((S - S_u).abs().max() / S_u.abs().max()),
+           "R_gap_vs_unsharded": float((R - R_u).abs().max()),
+           "finite": math.isfinite(err) and finite(torch, res.X, res.calib_X)}
+    return rec, res.X.cpu().numpy()
+
+
+def check_sharded_affine(rec: dict, unsharded_E: float, name: str) -> None:
+    """5i's checks of one rank's record: status 0, E / floor < 1.5, E within
+    ``SHARDED_AFFINE_E_RTOL`` of the unsharded pipeline's, the
+    calibration's S and R gaps within ``SHARDED_AFFINE_CALIB_GAP``, no
+    launch."""
+    rec["E_rel_diff_vs_unsharded"] = abs(rec["reprojection_error"] - unsharded_E) / unsharded_E
+    check(rec["finite"] and rec["status"] == 0 and rec["calibration_ok"],
+          f"{name}: status {rec['status']}, ok {rec['calibration_ok']}, finite {rec['finite']}")
+    check(rec["E_vs_noise_floor"] < 1.5, f"{name}: E / floor {rec['E_vs_noise_floor']:.4f}")
+    check(rec["E_rel_diff_vs_unsharded"] <= SHARDED_AFFINE_E_RTOL,
+          f"{name}: E differs from the unsharded pipeline's by "
+          f"{rec['E_rel_diff_vs_unsharded']:.3e}")
+    gaps = rec["S_gap_vs_unsharded"], rec["R_gap_vs_unsharded"]
+    check(max(gaps) <= SHARDED_AFFINE_CALIB_GAP,
+          f"{name}: S and R {gaps[0]:.3e}, {gaps[1]:.3e} from the unsharded calibration's")
+    check((rec["syrk_acc_launches"], rec["syrk_lower_launches"]) == (0, 0),
+          f"{name}: a SYRK kernel launched")
+
+
+def scenes_block(torch, mesh, n_scenes: int) -> dict:
+    """5i's ``shard_scenes``: 4f's batch (``batched_scenes``, seed 11) drawn
+    on the card and copied to the host; this rank's block of its scenes
+    axis, on its card, against the same scenes of the drawn batch."""
+    import torch.distributed as dist
+
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.parallel.batched import shard_scenes
+
+    x = batched_scenes(torch, make_synthetic_scene, n_scenes, BATCH_VIEWS, seed=11)
+    block = shard_scenes(x.cpu().numpy(), mesh)
+    r, n = dist.get_rank(), block.shape[0]
+    return {"scenes": n_scenes, "block": n, "device": str(block.device),
+            "equal": block.is_cuda and bool(torch.equal(block, x[r * n:(r + 1) * n]))}
+
+
+def sharded_cli_argv(rank_dir: str, dense_points: int) -> dict:
+    """5j's commands (``--shard-points`` is added per run): ``euclidean``
+    and ``affine`` at 5e's and 4h's 10k x 100 in float64, 4t's fisheye
+    ``bal --chunk-size`` (5g's flags, the non-fused build with K1) on the
+    COLMAP model 4t wrote into ``rank_dir``, and ``bal --sparse`` on 4w's
+    BAL file of 4m's problem (its held run's flags, 5 iterations a
+    segment) in float64."""
+    synthetic = ["--n-points", str(dense_points), "--n-images", str(DENSE_VIEWS), "--float64"]
+    return {
+        "euclidean": ["euclidean"] + synthetic,
+        "affine": ["affine"] + synthetic,
+        "bal": ["bal", os.path.join(rank_dir, "fisheye_model"), "--chunk-size", str(CHUNK),
+                "--optimize-distortion", "1", "--shared-k", "--covariance", "--max-iter", "10"],
+        "bal_sparse": ["bal", os.path.join(rank_dir, "sparse.bal"), "--sparse", "--float64",
+                       "--huber", str(HUBER_DELTA), "--optimize-distortion", "2", "--shared-k",
+                       "--max-iter", "5"],
+    }
+
+
+def sharded_commands(torch, fs, sy, argvs: dict, n: int) -> dict:
+    """Phase 5j on this rank: each command of ``argvs`` through ``cli.main``
+    with ``--shard-points n`` in the process group the rank is in (the
+    command joins it), its standard output captured: {name: (stdout, (K2,
+    K1) launches, wall)}."""
+    import contextlib
+    import io
+
+    from mvrecon_tpu_torch.cli import main as cli_main
+
+    out = {}
+    for name, argv in argvs.items():
+        buf = io.StringIO()
+        reset_launch_counts(fs, sy)
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv + ["--shard-points", str(n)])
+        out[name] = {"rc": rc, "stdout": buf.getvalue(), "launches": launch_counts(fs, sy),
+                     "wall_s": time.perf_counter() - start}
+    return out
+
+
+def sparse_tight(torch, mesh, argv: list) -> dict:
+    """5j's witness for ``bal --sparse``: the command's list, start and
+    config (``argv`` read by the command's own parser) through
+    ``sharded_bundle_adjust_sparse`` on ``mesh`` at
+    ``SHARDED_SPARSE_TIGHT``'s cg_tol, where the summation order no longer
+    moves CG's step: E, iterations, retries, CG count and wall."""
+    from mvrecon_tpu_torch.cli import build_parser
+    from mvrecon_tpu_torch.config import LMConfig
+    from mvrecon_tpu_torch.parallel.sharded_ba_sparse import sharded_bundle_adjust_sparse
+    from mvrecon_tpu_torch.runtime import io as tio
+
+    a = build_parser().parse_args(argv)
+    d = tio.load_bal_sparse(a.input)
+    cfg = LMConfig(scale_factor=a.scale_factor, delta_tol=a.delta_tol, max_iter=a.max_iter,
+                   damping=a.damping, robust=a.robust_loss, huber_delta=a.huber,
+                   distortion_rounds=a.optimize_distortion, distortion_shared=a.shared_k)
+
+    def f64(key):
+        return torch.tensor(np.asarray(d[key]), dtype=torch.float64)
+
+    start = time.perf_counter()
+    res = sharded_bundle_adjust_sparse(
+        mesh, d["point_idx"], d["cam_idx"], f64("xy"), f64("X"), f64("K"), f64("R"), f64("t"),
+        f0=float(d["f0"]), axis="x-up_z-forward", config=cfg, distortion=f64("distortion"),
+        **SHARDED_SPARSE_TIGHT)
+    return {**SHARDED_SPARSE_TIGHT, "E": float(res.error), "n_iter": int(res.n_iter),
+            "retries": int(res.log["n_solver_retries_total"]),
+            "cg_iters_last_segment": int(res.log["cg_iters_total"]),
+            "wall_s": time.perf_counter() - start}
+
+
 def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dict, pipe: dict,
-                   dense_pipe: dict) -> dict:
-    """Phases 5a-5f, point sharding (``parallel/sharded_ba.py``,
+                   dense_pipe: dict, sparse_rec: dict, bal_recs: dict, rank_dir: str) -> dict:
+    """Phases 5a-5f and 5h-5j, point sharding (``parallel/sharded_ba.py``,
     ``sharded_covariance.py``, ``sharded_calibration.py``,
-    ``pipelines.py``):
+    ``pipelines.py``, ``sharded_ba_sparse.py``, ``sharded_affine.py``,
+    ``batched.shard_scenes`` and the commands' ``--shard-points``):
 
     5a. 4o's problem (rendered anew into host memory from its seed)
     through ``sharded_bundle_adjust_chunked`` under a one-rank NCCL group:
@@ -1944,7 +2278,21 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
     ``SHARDED_LARGE_E_RTOL`` of phase 4's, K2 launches == retries x chunks
     on every rank (the BA runs whole on each), the ranks equal; the
     calibration's wall, its Gram all-reduce's bytes and ms and the peak
-    memory beside phase 4's.
+    memory beside phase 4's;
+    5h. ``sharded_bundle_adjust_sparse`` on 4u's list (``rank_dir``'s
+    sparse.npz) at one rank and two (``check_sharded_sparse``), the ranks
+    equal; retries, CG iterations, wall, peak memory and all-reduce bytes
+    and ms a retry and a CG iteration a rank;
+    5i. ``sharded_affine_reconstruction`` on 4h's 10k x 100 scene at one
+    rank and two (``check_sharded_affine``, against the unsharded
+    pipeline run here), the ranks equal; ``shard_scenes`` of 4f's batch at
+    one rank (every scene equal to 4f's) and two (each rank its half);
+    5j. each command of ``sharded_cli_argv`` at one rank (here; 4t's 5g
+    record for ``bal``) and at two (the ranks): rank 0's record with
+    ``shard_points`` 2, status 0 where the command has one, E within
+    ``SHARDED_CLI_E_RTOLS`` of the one-rank run's; rank 1 prints nothing;
+    ``bal``'s K1 launches a positive multiple of its chunks on each rank,
+    the others none.
 
     Returns the launches of K2 and K1 by phase."""
     import torch.distributed as dist
@@ -1952,6 +2300,7 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
     from mvrecon_tpu_torch.config import LMConfig
     from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
     from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.models.pipelines import affine_reconstruction
     from mvrecon_tpu_torch.parallel import sharded_ba as sba
     from mvrecon_tpu_torch.parallel.mesh import make_mesh
     from mvrecon_tpu_torch.runtime.distributed import free_port, initialize
@@ -2025,12 +2374,31 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
         rec_d, X_d = sharded_large(torch, fs, sy, mesh, scene, config)
         del scene
         torch.cuda.empty_cache()
+        # 5h, 5i and 5j at one rank
+        rec_h, X_h = sharded_sparse(torch, fs, sy, mesh, os.path.join(rank_dir, "sparse.npz"))
+        torch.cuda.empty_cache()
+        x_aff = affine_scene_host(torch, args.dense_points)
+        reset_launch_counts(fs, sy)
+        aff_u = affine_reconstruction(x_aff, torch.ones(DENSE_VIEWS, device="cuda"),
+                                      config=affine_config())
+        aff_u = {"status": aff_u.status, "ba_n_iter": aff_u.n_iter,
+                 "reprojection_error": float(aff_u.error), "launches": launch_counts(fs, sy)}
+        rec_i, X_i = sharded_affine(torch, fs, sy, mesh, x_aff)
+        del x_aff
+        rec_i["shard_scenes"] = scenes_block(torch, make_mesh({"scenes": 1}), args.batched_scenes)
+        argvs = sharded_cli_argv(rank_dir, args.dense_points)
+        one = sharded_commands(torch, fs, sy, {k: v for k, v in argvs.items() if k != "bal"}, 1)
+        tight_one = sparse_tight(torch, mesh, argvs["bal_sparse"])
+        one["bal"] = {"rc": 0, "stdout": json.dumps(bal_recs["fisheye_sharded"]["record"]),
+                      "launches": (bal_recs["fisheye_sharded"]["syrk_acc_launches"],
+                                   bal_recs["fisheye_sharded"]["syrk_lower_launches"]),
+                      "wall_s": bal_recs["fisheye_sharded"]["wall_s"]}
     finally:
         dist.destroy_process_group()
 
-    # 5b and 5c on two ranks, each a process
+    # 5b-5j on two ranks, each a process
     t0 = time.perf_counter()
-    ranks = launch_sharded_ranks(args)
+    ranks = launch_sharded_ranks(args, rank_dir)
     launcher_wall = time.perf_counter() - t0
     recs = [r["records"]["chunked"] for r in ranks]
     e_b = [r["reprojection_error"] for r in recs]
@@ -2120,6 +2488,98 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
         "reprojection_error", "E_vs_noise_floor", "max_memory_allocated_gb")}
     rec_d["E_rtol"] = SHARDED_LARGE_E_RTOL
     print("sharded_large " + json.dumps(rec_d), flush=True)
+
+    h_recs = [r["records"]["sparse"] for r in ranks]
+    for r in [rec_h] + h_recs:
+        check_sharded_sparse(r, sparse_rec, f"5h ({r['ranks']} ranks)")
+    rec_h["two_ranks"] = {
+        "ranks": h_recs, "ranks_equal": bool(np.array_equal(ranks[0]["sparse_X"],
+                                                            ranks[1]["sparse_X"])),
+        "X_max_abs_diff_vs_one_rank": max_abs_diff(ranks[0]["sparse_X"], X_h)}
+    rec_h["unsharded_4u"] = {key: sparse_rec[key] for key in (
+        "wall_s", "retries", "cg_iters_total", "weighted_E", "max_memory_allocated_gb",
+        "aligned_rmse_vs_gt")}
+    rec_h["unsharded_4u"]["matvec_ms_median"] = sparse_rec["spans"]["matvec"]["median_ms"]
+    rec_h["E_rtol_two_ranks"] = SHARDED_SPARSE_E_RTOL
+    print("sharded_sparse " + json.dumps(rec_h), flush=True)
+    check(rec_h["two_ranks"]["ranks_equal"] and h_recs[0]["weighted_E"] == h_recs[1]["weighted_E"],
+          "5h: the ranks returned different results")
+
+    i_recs = [r["records"]["affine"] for r in ranks]
+    for r in [rec_i] + i_recs:
+        check_sharded_affine(r, aff_u["reprojection_error"], f"5i ({r['ranks']} ranks)")
+    rec_i["two_ranks"] = {
+        "ranks": i_recs, "ranks_equal": bool(np.array_equal(ranks[0]["affine_X"],
+                                                            ranks[1]["affine_X"])),
+        "X_max_abs_diff_vs_one_rank": max_abs_diff(ranks[0]["affine_X"], X_i)}
+    rec_i["unsharded"] = aff_u
+    rec_i["E_rtol"] = SHARDED_AFFINE_E_RTOL
+    print("sharded_affine " + json.dumps(rec_i), flush=True)
+    check(rec_i["two_ranks"]["ranks_equal"], "5i: the ranks returned different results")
+    check(aff_u["status"] == 0 and aff_u["launches"] == (0, 0),
+          f"5i: the unsharded affine pipeline: {aff_u}")
+    blocks = [rec_i["shard_scenes"]] + [r["shard_scenes"] for r in i_recs]
+    check(all(b["equal"] and b["block"] * b_n == b["scenes"]
+              for b, b_n in zip(blocks, (1, SHARDED_RANKS, SHARDED_RANKS))),
+          f"5i: shard_scenes blocks {blocks}")
+
+    j_recs = [r["records"]["commands"] for r in ranks]
+    rec_j = {}
+    for name in argvs:
+        unsh = json.loads(one[name]["stdout"].strip().splitlines()[-1])
+        got = json.loads(j_recs[0][name]["stdout"].strip().splitlines()[-1])
+        e_rel = abs(got["reprojection_error"] - unsh["reprojection_error"]) / abs(
+            unsh["reprojection_error"])
+        rec_j[name] = {"argv": argvs[name], "record_rank_0": got, "one_rank_record": unsh,
+                       "E_rel_diff_vs_one_rank": e_rel, "E_rtol": SHARDED_CLI_E_RTOLS[name],
+                       "walls_s": [r[name]["wall_s"] for r in j_recs],
+                       "one_rank_wall_s": one[name]["wall_s"],
+                       "launches_per_rank": [r[name]["launches"] for r in j_recs],
+                       "one_rank_launches": one[name]["launches"],
+                       "rank_1_stdout": j_recs[1][name]["stdout"]}
+    tight = [r["records"]["sparse_tight"] for r in ranks]
+    rec_j["bal_sparse"]["tight_cg_tol"] = {
+        "one_rank": tight_one, "two_ranks": tight,
+        "E_rel_diff_vs_one_rank": abs(tight[0]["E"] - tight_one["E"]) / tight_one["E"],
+        "E_rtol": SHARDED_SPARSE_TIGHT_E_RTOL, "cg_rtol": SHARDED_SPARSE_TIGHT_CG_RTOL}
+    print("sharded_commands " + json.dumps(rec_j), flush=True)
+    for name, r in rec_j.items():
+        got, unsh = r["record_rank_0"], r["one_rank_record"]
+        check(got["shard_points"] == SHARDED_RANKS and unsh["shard_points"] == 1
+              and all(rr[name]["rc"] == 0 for rr in j_recs),
+              f"5j {name}: shard_points {got['shard_points']}, {unsh['shard_points']}")
+        check(got.get("status", 0) == unsh.get("status", 0) == 0,
+              f"5j {name}: status {got.get('status')}, one rank {unsh.get('status')}")
+        check(r["E_rel_diff_vs_one_rank"] <= r["E_rtol"],
+              f"5j {name}: E differs from the one-rank run's by {r['E_rel_diff_vs_one_rank']:.3e}")
+        check(r["rank_1_stdout"] == "", f"5j {name}: rank 1 printed {r['rank_1_stdout']!r}")
+    n_bal = rec_j["bal"]["record_rank_0"]["points"]
+    bal_chunks = math.ceil(math.ceil(n_bal / SHARDED_RANKS) / CHUNK)
+    check(all(k2 == 0 and k1 > 0 and k1 % bal_chunks == 0
+              for k2, k1 in rec_j["bal"]["launches_per_rank"]),
+          f"5j bal: launches (K2, K1) a rank {rec_j['bal']['launches_per_rank']}, not a positive "
+          f"multiple of {bal_chunks} chunks of K1")
+    check(all(tuple(launches) == (0, 0) for name, r in rec_j.items() if name != "bal"
+              for launches in r["launches_per_rank"] + [r["one_rank_launches"]]),
+          "5j: a command other than bal launched a SYRK kernel")
+    t_rec = rec_j["bal_sparse"]["tight_cg_tol"]
+    check(tight[0]["E"] == tight[1]["E"], "5j tight cg_tol: the ranks' E differ")
+    check(t_rec["E_rel_diff_vs_one_rank"] <= SHARDED_SPARSE_TIGHT_E_RTOL,
+          f"5j tight cg_tol: E differs from the one-rank run's by "
+          f"{t_rec['E_rel_diff_vs_one_rank']:.3e}")
+    check(all((r["n_iter"], r["retries"]) == (tight_one["n_iter"], tight_one["retries"])
+              and abs(r["cg_iters_last_segment"] - tight_one["cg_iters_last_segment"])
+              <= SHARDED_SPARSE_TIGHT_CG_RTOL * tight_one["cg_iters_last_segment"]
+              for r in tight),
+          f"5j tight cg_tol: iterations, retries or CG counts {tight} against {tight_one}")
+
+    def launches_5hij(i: int) -> dict:
+        key = ("syrk_acc_launches", "syrk_lower_launches")[i]
+        return {"5h": rec_h[key], "5h_per_rank": [r[key] for r in h_recs],
+                "5i": rec_i[key], "5i_per_rank": [r[key] for r in i_recs],
+                "5j_per_rank": {name: [la[i] for la in r["launches_per_rank"]]
+                                for name, r in rec_j.items()}}
+
     return {
         "syrk_acc": {"5a": rec_a["syrk_acc_launches"],
                      "5b_per_rank": [r["syrk_acc_launches"] for r in recs],
@@ -2128,7 +2588,8 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
                      "5d": rec_d["syrk_acc_launches"],
                      "5d_per_rank": [r["syrk_acc_launches"] for r in d5_recs],
                      "5e": rec_e["syrk_acc_launches"],
-                     "5e_per_rank": [r["syrk_acc_launches"] for r in e_recs]},
+                     "5e_per_rank": [r["syrk_acc_launches"] for r in e_recs],
+                     **launches_5hij(0)},
         "syrk_lower": {"5a": rec_a["syrk_lower_launches"],
                        "5a_unsharded_4o": opencv_rec["syrk_lower_launches"],
                        "5b_per_rank": rec_b["syrk_lower_launches_per_rank"],
@@ -2137,7 +2598,8 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
                        "5d": rec_d["syrk_lower_launches"],
                        "5d_per_rank": [r["syrk_lower_launches"] for r in d5_recs],
                        "5e": rec_e["syrk_lower_launches"],
-                       "5e_per_rank": [r["syrk_lower_launches"] for r in e_recs]},
+                       "5e_per_rank": [r["syrk_lower_launches"] for r in e_recs],
+                       **launches_5hij(1)},
     }
 
 
@@ -2206,7 +2668,7 @@ def distorted_streamed(torch, sy, x_host, truth, start_cams, s_cfg, full: bool,
     return rec
 
 
-def bal_on_card(torch, fs, sy, bal_points: int) -> dict:
+def bal_on_card(torch, fs, sy, bal_points: int, rank_dir: str) -> dict:
     """Phase 4t: the ``bal`` subcommand in process, on the card, on COLMAP
     models that the port's ``save_colmap`` writes (binary) into a temporary
     directory: 4m's scene (20k points x 100 views, each point seen by 20
@@ -2308,16 +2770,16 @@ def bal_on_card(torch, fs, sy, bal_points: int) -> dict:
               f"bal {model}: the pinhole model's E {e_pin:.6g} against the modelled {e_model:.6g}")
         if model == "fisheye":
             # 5g: the same command with --shard-points 1, the sharded chunked
-            # core (the non-fused build, K1, as unsharded for this family)
-            with tempfile.TemporaryDirectory() as tmp:
-                tio.save_colmap(os.path.join(tmp, "model"), x_host, vis_host, X0, R, t0,
-                                K[:, 0, 0], principal_point=K[:, :2, 2],
-                                distortion=dist.cpu().numpy(), distortion_model=model,
-                                binary=True)
-                recs[f"{model}_sharded"] = sharded_command(
-                    torch, fs, sy, ["bal", os.path.join(tmp, "model"), "--chunk-size", str(CHUNK),
-                                    "--optimize-distortion", "1", "--shared-k", "--covariance",
-                                    "--max-iter", "10"], rec, launches, "bal")
+            # core (the non-fused build, K1, as unsharded for this family), on
+            # the model that 5j's two ranks read too
+            path = os.path.join(rank_dir, "fisheye_model")
+            tio.save_colmap(path, x_host, vis_host, X0, R, t0, K[:, 0, 0],
+                            principal_point=K[:, :2, 2], distortion=dist.cpu().numpy(),
+                            distortion_model=model, binary=True)
+            recs[f"{model}_sharded"] = sharded_command(
+                torch, fs, sy, ["bal", path, "--chunk-size", str(CHUNK), "--optimize-distortion",
+                                "1", "--shared-k", "--covariance", "--max-iter", "10"], rec,
+                launches, "bal")
             chunks = math.ceil(npts / CHUNK)
             k1 = recs[f"{model}_sharded"]["syrk_lower_launches"]
             check(k1 > 0 and k1 % chunks == 0,
@@ -2608,7 +3070,7 @@ SPARSE_DENSE_RTOL = 1e-8  # phase 5: sparse against dense in float64 at cg_tol 1
 
 
 def bal_sparse_in_process(torch, fs, sy, bal_points: int, argv: list, truth_k=RADIAL_TRUTH,
-                          robust: bool = True) -> dict:
+                          robust: bool = True, keep: str | None = None) -> dict:
     """One ``bal --sparse`` run in process on the card, on a BAL file that
     ``save_bal_sparse`` writes from 4m's scene (rendered through the shared
     radial ``truth_k``, with 4m's outliers when ``robust``; the file's
@@ -2616,7 +3078,8 @@ def bal_sparse_in_process(torch, fs, sy, bal_points: int, argv: list, truth_k=RA
     extra flags ``argv`` and ``--output-ply``/``--output-bal``. The BAL file
     has no principal point, so the inlier E/floor is taken at the state the
     command computed (its ``bundle_adjust_sparse`` result) and the outputs
-    are read back for their counts. Returns the record."""
+    are read back for their counts; ``keep`` is where a copy of the BAL
+    file stays. Returns the record."""
     import contextlib
     import io
     import os
@@ -2648,6 +3111,8 @@ def bal_sparse_in_process(torch, fs, sy, bal_points: int, argv: list, truth_k=RA
         tio.save_bal_sparse(path, pi.cpu().numpy(), ci.cpu().numpy(), x[pi, ci].cpu().numpy(),
                             npts, X0, R, t0, K[:, 0, 0], distortion=np.zeros((nf, 2)))
         rec["write_s"] = time.perf_counter() - t_w
+        if keep:
+            shutil.copyfile(path, keep)
         out = io.StringIO()
         reset_launch_counts(fs, sy)
         tbs.bundle_adjust_sparse = keep_result
@@ -2684,7 +3149,7 @@ def bal_sparse_in_process(torch, fs, sy, bal_points: int, argv: list, truth_k=RA
     return rec
 
 
-def sparse_entry_points(torch, fs, sy, bal_points: int) -> dict:
+def sparse_entry_points(torch, fs, sy, bal_points: int, rank_dir: str) -> dict:
     """Phase 4w: the sparse entry points on 4m's problem (20k points x 100
     views, 400k observations) as an observation list
     (``bal_sparse_in_process``). ``bal --sparse --huber 0.02
@@ -2712,7 +3177,8 @@ def sparse_entry_points(torch, fs, sy, bal_points: int) -> dict:
     hub = ["--huber", str(HUBER_DELTA)]
     rec = {
         "bal_distorted": bal_sparse_in_process(
-            torch, fs, sy, bal_points, hub + ["--optimize-distortion", "2", "--shared-k"]),
+            torch, fs, sy, bal_points, hub + ["--optimize-distortion", "2", "--shared-k"],
+            keep=os.path.join(rank_dir, "sparse.bal")),
         "bal_triangulated": bal_sparse_in_process(
             torch, fs, sy, bal_points, ["--triangulate-init"] + hub, truth_k=(0.0, 0.0),
             robust=False),
@@ -3431,11 +3897,10 @@ def main() -> int:
           f"dense pipeline E / noise floor {dense_pipe['E_vs_noise_floor']:.3f}")
     check(p_launches == (0, 0), f"dense pipeline launched the SYRK kernels {p_launches}")
 
-    # 5a-5c. point-sharded BA: 4o's problem on one NCCL rank and on two
-    # ranks on the one card, 4c's through the dense sharded core
-    torch.cuda.empty_cache()
-    sharded_launches = sharded_phases(torch, fs, sy, args, config, opencv_rec, dense, pipe,
-                                      dense_pipe)
+    # the ranks' directory: 5h's list (from 4u) and 5j's files (from 4t and
+    # 4w) are written there, and the two ranks of 5b-5j write their results
+    rank_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    atexit.register(shutil.rmtree, rank_dir, True)
 
     # 4m. scripts/bench_bal.py's distorted problem through the dense core;
     # 4q. the same problem through each of the other four families, one
@@ -3446,16 +3911,17 @@ def main() -> int:
                         FAMILY_SIGMA, robust=model != "full_opencv")
     distorted_dense(torch, fs, sy, args.bal_points, "full_opencv", FAMILY_TRUTHS["full_opencv"],
                     1, "full_opencv_dense_huber", FAMILY_SIGMA, hold_model=False)
-    bal_recs = bal_on_card(torch, fs, sy, args.bal_points)
+    bal_recs = bal_on_card(torch, fs, sy, args.bal_points, rank_dir)
 
     # 4u. the sparse observation-list core at bench_bal_large's width: 1M
     # points x 1,600 cameras x 10M observations; 4v. its capacity levers;
     # 4w. its entry points (bal --sparse, the resumable driver)
     sparse_prob, sparse_rec = sparse_full_width(torch, fs, sy, args.sparse_points)
     levers_rec = sparse_levers(torch, fs, sy, sparse_prob)
+    write_sparse_list(sparse_prob, os.path.join(rank_dir, "sparse.npz"))  # 5h's input
     del sparse_prob
     torch.cuda.empty_cache()
-    entry_rec = sparse_entry_points(torch, fs, sy, args.bal_points)
+    entry_rec = sparse_entry_points(torch, fs, sy, args.bal_points, rank_dir)
     torch.cuda.empty_cache()
 
     # 4x. reconstruct on an npz of the dense headline's scene; 4y. bench-ba,
@@ -3466,6 +3932,11 @@ def main() -> int:
     eucl_rec = euclidean_on_card(torch, fs, sy)  # 5g's euclidean
     bench_recs = bench_ba_on_card(torch, fs, sy, args.points, args.dense_points)
     api_rec = reference_api_on_card(torch, fs, sy, args.bal_points)
+    torch.cuda.empty_cache()
+
+    # 5a-5j. point sharding: one NCCL rank, then two ranks on the one card
+    sharded_launches = sharded_phases(torch, fs, sy, args, config, opencv_rec, dense, pipe,
+                                      dense_pipe, sparse_rec, bal_recs, rank_dir)
     torch.cuda.empty_cache()
 
     # 4e. the large pipeline with the camera bootstrap, on phase 4's scene

@@ -21,17 +21,22 @@ Every subcommand takes ``--log-json FILE`` (append the record),
 ``--device`` says otherwise. The JAX package's ``--platform`` and
 ``--num-cpu-devices`` (XLA switches) have ``--device`` as counterpart.
 
-``--shard-points N`` splits the points of ``euclidean``, ``reconstruct``
-(the euclidean pipeline) and ``bal`` (dense or chunked) over N ranks, one
-process each (``runtime.distributed.join_ranks``): under torchrun,
+``--shard-points N`` splits the points of ``euclidean``, ``affine``,
+``reconstruct`` (the euclidean pipeline) and ``bal`` (dense, chunked or
+``--sparse``) over N ranks, one process each
+(``runtime.distributed.join_ranks``): under torchrun,
 
     torchrun --nproc-per-node N -m mvrecon_tpu_torch euclidean --shard-points N
 
-(``--device cpu`` takes gloo, the cards NCCL), or with N = 1 alone. Every
-rank keeps the per-point arrays on the host, copies only its block of them
-to its device and computes the global result; rank 0 alone prints the
-record and writes the files and the covariance, which runs unsharded, as
-in the JAX package.
+(``--device cpu`` takes gloo, the cards NCCL), in a process group the
+caller already formed (``cli.main`` called in each rank), or with N = 1
+alone. Every rank keeps the per-point arrays on the host, copies only its
+block of them to its device and computes the global result; the synthetic
+scene of ``euclidean`` and ``affine`` is drawn on rank 0's device alone and
+reaches the others' hosts through a block-sized buffer
+(``runtime.distributed.broadcast_array``). Rank 0 alone prints the record
+and writes the files and the covariance, which runs unsharded, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -99,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", choices=["orthographic", "symmetric", "paraperspective"],
                    default="paraperspective")
     _lm_args(p)
-    _shard_arg(p, "not ported yet")
+    _shard_arg(p, "the calibration and BA; P must divide by N")
 
     p = sub.add_parser("batch", help="scene-batched perspective pipeline on synthetic scenes")
     _scene_args(p, n_points=200, n_images=10, seed=123)
@@ -183,7 +188,7 @@ def _bal_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--damping", choices=["reference", "nielsen"], default="nielsen")
     p.add_argument("--chunk-size", type=int, default=0, metavar="C",
                    help="the chunked core, C points a chunk (default: the dense core)")
-    _shard_arg(p, "the dense or chunked core; not with --sparse")
+    _shard_arg(p, "the dense, chunked or --sparse core")
     p.add_argument("--sparse", action="store_true",
                    help="the O(n_observations) observation-list core, for BAL files at "
                    "BAL-class sparsity; writes --output-ply and --output-bal")
@@ -200,18 +205,12 @@ def _bal_args(p: argparse.ArgumentParser) -> None:
 
 def _shard_count(args) -> int:
     """The ranks the command splits its points over: ``--shard-points``
-    for ``euclidean``, ``reconstruct``'s euclidean pipeline (its affine
-    one runs unsharded, as in the JAX package) and ``bal``; 0 for none.
-    The paths that are not ported yet raise before any rank is joined."""
+    for ``euclidean``, ``affine``, ``reconstruct``'s euclidean pipeline
+    (its affine one runs unsharded, as in the JAX package) and ``bal``; 0
+    for none."""
     n = getattr(args, "shard_points", 0)
     if n <= 0:
         return 0
-    if args.command == "affine":
-        raise NotImplementedError("affine --shard-points: the point-sharded affine pipeline "
-                                  "is not ported yet: ROADMAP queue 1 item 4c")
-    if args.command == "bal" and args.sparse:
-        raise NotImplementedError("bal --sparse --shard-points: the point-sharded sparse core "
-                                  "is not ported yet: ROADMAP queue 1 item 4d")
     if args.command == "reconstruct" and args.pipeline != "euclidean":
         return 0
     return n
@@ -368,7 +367,9 @@ def _cmd_bal_sparse(args, out: dict, dev, dt) -> None:
     """``bal --sparse``: the O(n_obs) path. The BAL file loads straight
     into the observation list (no dense arrays), the sparse core optimizes
     it (from the file's points or a DLT triangulation), and PLY and BAL are
-    written from the list; the record carries the JAX package's keys."""
+    written from the list; the record carries the JAX package's keys. With
+    ``--shard-points`` the list stays on the host and each rank runs its
+    block of the partition (``sharded_bundle_adjust_sparse``)."""
     import os
 
     from .config import LMConfig, as_tensor
@@ -394,20 +395,32 @@ def _cmd_bal_sparse(args, out: dict, dev, dt) -> None:
 
     dist = None if args.ignore_distortion else dev_t(d["distortion"])
     K0, R0, t0 = dev_t(d["K"]), dev_t(d["R"]), dev_t(d["t"])
-    pi = torch.from_numpy(d["point_idx"].astype(np.int32)).to(dev)
-    ci = torch.from_numpy(d["cam_idx"].astype(np.int32)).to(dev)
-    xy = dev_t(d["xy"])  # (N, 2)
+    sharded = _shard_count(args)
+    kw = dict(f0=f0, axis="x-up_z-forward", config=cfg, cg_max_iter=args.cg_max_iter,
+              distortion=dist, factor_dtype="bfloat16" if args.bf16_factors else None,
+              factor_mode="recompute" if args.recompute_factors else "stored", device=dev)
+    def idx(key):
+        return torch.from_numpy(d[key].astype(np.int32)).to(dev)
+
     if args.triangulate_init:
-        X0 = triangulate_sparse(pi, ci, xy, npts, K0, R0, t0, f0=f0, device=dev)
+        # on the whole list, before any partition, as the JAX command does
+        X0 = triangulate_sparse(idx("point_idx"), idx("cam_idx"), dev_t(d["xy"]), npts, K0, R0,
+                                t0, f0=f0, device=dev)
         out["triangulate_init"] = True
     else:
-        X0 = dev_t(d["X"])
-    obs = SparseObs(pi, ci, xy.T.contiguous(), torch.ones(pi.shape[0], dtype=dt, device=dev))
-    res = bundle_adjust_sparse(
-        obs, X0, K0, R0, t0, f0=f0, axis="x-up_z-forward", config=cfg,
-        cg_max_iter=args.cg_max_iter, distortion=dist,
-        factor_dtype="bfloat16" if args.bf16_factors else None,
-        factor_mode="recompute" if args.recompute_factors else "stored", device=dev)
+        X0 = _on_host(d["X"], dt) if sharded else dev_t(d["X"])
+    if sharded:
+        from .parallel.sharded_ba_sparse import sharded_bundle_adjust_sparse
+
+        # host arrays: each rank partitions them and copies only its block
+        res = sharded_bundle_adjust_sparse(_points_mesh(args), d["point_idx"], d["cam_idx"],
+                                           _on_host(d["xy"], dt), X0, K0, R0, t0, **kw)
+        out["shard_points"] = args.shard_points
+    else:
+        pi = idx("point_idx")
+        obs = SparseObs(pi, idx("cam_idx"), dev_t(d["xy"]).T.contiguous(),
+                        torch.ones(pi.shape[0], dtype=dt, device=dev))
+        res = bundle_adjust_sparse(obs, X0, K0, R0, t0, **kw)
     if args.bf16_factors:
         out["factor_dtype"] = "bfloat16"
     if args.recompute_factors:
@@ -416,6 +429,8 @@ def _cmd_bal_sparse(args, out: dict, dev, dt) -> None:
                observations=int(d["point_idx"].shape[0]), ba_iterations=int(res.n_iter),
                cg_iterations=int(res.log["cg_iters_total"]),
                reprojection_error=float(res.error))
+    if not _lead(args):
+        return
     dmat = None if res.distortion is None else res.distortion.cpu().numpy()
     if dmat is not None:
         out["k1_mean"] = float(dmat[:, 0].mean())
@@ -458,44 +473,60 @@ def _cmd_synthetic(args, out: dict, dev, dt) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
+    n_slices = max(1, args.n_points // 20)
+
     def scene():
-        return make_synthetic_scene(gen, n_images=args.n_images,
-                                    n_slices=max(1, args.n_points // 20), n_angles=20,
+        return make_synthetic_scene(gen, n_images=args.n_images, n_slices=n_slices, n_angles=20,
                                     f=args.f, f0=args.f0, noise=args.noise, dtype=dt)
 
     timer = StageTimer()
     start = time.perf_counter()
+    sharded = args.command in ("euclidean", "affine") and _shard_count(args)
     if args.command == "batch":
         x = torch.stack([scene().x for _ in range(args.scenes)])
         n_points = x.shape[2]
+    elif sharded:
+        from .runtime.distributed import broadcast_array
+
+        # the unsharded command's draw, on rank 0's device alone; the other
+        # ranks receive its host copy a block at a time, and every rank
+        # then copies its own block of the points back
+        n_points = n_slices * 20
+        x = broadcast_array(scene().x.cpu() if _lead(args) else None,
+                            (args.n_images, n_points, 2), dt, device=dev)
     else:
-        sc = scene()
-        n_points = sc.X.shape[0]
+        x = scene().x
+        n_points = x.shape[1]
     if args.command in ("euclidean", "affine", "batch"):
         config = LMConfig(scale_factor=args.scale_factor, delta_tol=args.delta_tol,
                           max_iter=args.max_iter)
-    if args.command == "euclidean" and _shard_count(args):
+    if args.command == "euclidean" and sharded:
         from .parallel.pipelines import sharded_euclidean_reconstruction
 
-        # the scene is drawn on the card, from the unsharded command's stream,
-        # and kept on the host: each rank copies its block of x back
-        sc = type(sc)(*(a.cpu() for a in sc))
         if args.eig_method != "eigh" and _lead(args):
             print("warning: --eig-method is ignored with --shard-points (the sharded "
                   "calibration always uses the exact Gram-subspace eigensolve)", file=sys.stderr)
-        res = sharded_euclidean_reconstruction(_points_mesh(args), sc.x, f0=args.f0, tol=args.tol,
+        res = sharded_euclidean_reconstruction(_points_mesh(args), x, f0=args.f0, tol=args.tol,
                                                method=args.method, config=config, device=dev,
                                                timer=timer)
         out.update(method=args.method, shard_points=args.shard_points)
     elif args.command == "euclidean":
-        res = euclidean_reconstruction(sc.x, f0=args.f0, tol=args.tol, method=args.method,
+        res = euclidean_reconstruction(x, f0=args.f0, tol=args.tol, method=args.method,
                                        config=config, eig_method=args.eig_method, device=dev,
                                        timer=timer)
         out.update(method=args.method, eig_method=args.eig_method)
     elif args.command == "affine":
         f = torch.full((args.n_images,), args.f, dtype=dt, device=dev)
-        res = affine_reconstruction(sc.x, f, model=args.model, f0=args.f0, config=config,
-                                    device=dev, timer=timer)
+        if sharded:
+            from .parallel.pipelines import sharded_affine_reconstruction
+
+            res = sharded_affine_reconstruction(_points_mesh(args), x, f, model=args.model,
+                                                f0=args.f0, config=config, device=dev,
+                                                timer=timer)
+            out["shard_points"] = args.shard_points
+        else:
+            res = affine_reconstruction(x, f, model=args.model, f0=args.f0, config=config,
+                                        device=dev, timer=timer)
         out["model"] = args.model
     elif args.command == "batch":
         res = batched_euclidean_reconstruction(
@@ -509,7 +540,7 @@ def _cmd_synthetic(args, out: dict, dev, dt) -> None:
     else:
         config = LMConfig(scale_factor=4.0, delta_tol=0.0, max_iter=args.max_iter,
                           accept_divisor=1.0, init_damping=3e-3, damping="nielsen")
-        res = euclidean_reconstruction_large(sc.x, f0=args.f0, config=config,
+        res = euclidean_reconstruction_large(x, f0=args.f0, config=config,
                                              chunk_size=args.chunk_size, device=dev,
                                              timer=timer)
         out.update(chunk_size=args.chunk_size,
@@ -525,7 +556,7 @@ def _cmd_synthetic(args, out: dict, dev, dt) -> None:
                n_points=n_points, n_views=args.n_images, wall_s=wall,
                stage_walls_s=timer.times, E_vs_noise_floor=err / floor if floor > 0 else None)
     if args.viz and args.command in ("euclidean", "affine") and _lead(args):
-        _show(sc.x, res)
+        _show(x, res)
 
 
 # The dual depth step's dense eigensolve holds about this many (F, P, P)

@@ -1289,7 +1289,7 @@ def _check_ported(config: LMConfig, dist=None, solver=None) -> str:
     resolved model name."""
     if solver is not None:
         raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet: "
-                                  "it comes with sharded_ba_2d, ROADMAP queue 1 item 4d")
+                                  "it comes with sharded_ba_2d, ROADMAP queue 1 item 4")
     model = resolve_distortion_model(dist, config.distortion_model)
     resolve_robust(config.robust)
     return model

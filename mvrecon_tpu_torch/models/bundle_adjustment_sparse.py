@@ -63,8 +63,18 @@ observations; ``matvec_chunk`` chunks the CG matvec's transients too.
 ``factor_mode="recompute"`` stores no factor rows: every pass recomputes
 them chunk by chunk from the O(P + F) state.
 
-The sharded variant (``parallel/sharded_ba_sparse.py``, ``axis_name``) is
-not ported yet and raises ``NotImplementedError``.
+Point sharding (``parallel/sharded_ba_sparse.py``): with ``axis_name``
+each rank holds the observations of a contiguous range of points and those
+points, and the cameras are replicated. Everything point-side stays on the
+rank; the camera-side sums are all-reduced through ``_psum`` where the JAX
+package psums them: E (the start, the build's weighted E, every trial), the
+build's camera rows (d_F, the rhs sums, the camera blocks, the
+preconditioner correction and the seen-camera weights, one (109, F)
+all-reduce a retry), the matvec's camera sums (one (9, F) all-reduce a CG
+iteration), Nielsen's two point-side sums (one all-reduce of two values a
+retry) and the refit's normal terms. Every host read (PCG's flag, the
+retry's acceptance) reads those replicated values only, so the ranks take
+the same branches.
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ from .bundle_adjustment import (
     _check_ported,
     _distorted_residual,
     _lm_damping,
+    _psum,
     _refit_rounds,
     _refit_solve,
     _refit_terms,
@@ -387,6 +398,7 @@ class _Problem(NamedTuple):
     remat: bool
     f_dt: torch.dtype | None
     timer: object
+    axis: str | None = None
 
 
 class _State(NamedTuple):
@@ -467,7 +479,7 @@ def _point_side(pb: _Problem, st: _State) -> _PointSide:
     unseen = (acc[9] <= 0).to(dt)
     matE6 = acc[3:9].clone()
     matE6[:3] += unseen
-    return _PointSide(e_w, acc[:3], matE6)
+    return _PointSide(_psum(e_w, pb.axis), acc[:3], matE6)
 
 
 class _System(NamedTuple):
@@ -512,6 +524,7 @@ def _camera_side(pb: _Problem, st: _State, ps: _PointSide, free, c) -> _System:
             w2 * (b1i * b1j + b2i * b2j),
             al11 * b1i * b1j + al12 * (b1i * b2j + b2i * b1j) + al22 * b2i * b2j, w[None]])
         acc += _seg_sum(rows, ch.c_off)
+    acc = _psum(acc, pb.axis)
     d_F = acc[0:9].T.reshape(-1) * free
     b_f = acc[9:18].T.reshape(-1)
     matG = _sym45_to_blocks(acc[18:63])
@@ -552,7 +565,7 @@ def _ft_cam_rows(pb: _Problem, st: _State, w_p: torch.Tensor) -> torch.Tensor:
         w_g = w_p.index_select(1, pb.obs.point_idx[ch.start:ch.end])
         w2 = 2.0 * w
         acc += _cam_sum(w2 * (a1 * w_g).sum(0) * b1 + w2 * (a2 * w_g).sum(0) * b2, ch)
-    return acc.T
+    return _psum(acc, pb.axis).T
 
 
 def _schur_matvec(pb: _Problem, st: _State, sy: _System, free, v: torch.Tensor) -> torch.Tensor:
@@ -633,7 +646,7 @@ def _trial_error(pb: _Problem, cam: BAState, X: torch.Tensor, dist, w_of) -> tor
         rp, rq = _residual_cols(rtab, X, o.point_idx[s:t], o.cam_idx[s:t], o.xy[:, s:t], w,
                                 pb.f0, pb.model)
         e = e + torch.sum(w * (rp**2 + rq**2))
-    return e
+    return _psum(e, pb.axis)
 
 
 def lm_optimize_sparse(
@@ -670,10 +683,13 @@ def lm_optimize_sparse(
     the whole list in stored mode, ``obs_chunk`` in recompute mode).
     ``timer`` (``runtime.profiling.EventTimer``) records the spans "build",
     "cg", "matvec" and "trial". ``plans`` caches the chunk plans across
-    calls on one list."""
-    if axis_name is not None:
-        raise NotImplementedError("the sparse core's axis_name (sharded_ba_sparse) is not "
-                                  "ported yet: ROADMAP queue 1 item 4d")
+    calls on one list.
+
+    ``axis_name``: the list is this rank's block of a point-partitioned
+    list (``parallel/sharded_ba_sparse.py``), ``state0.X`` its points, and
+    the camera-side sums are all-reduced over the axis (see the module
+    docstring); an axis name that no sharded call binds raises
+    ``ValueError``."""
     model = _check_ported(config, dist)
     if factor_mode not in ("stored", "recompute"):
         raise ValueError(f"unknown factor_mode: {factor_mode!r}")
@@ -691,7 +707,7 @@ def lm_optimize_sparse(
                   _cached_plan(plans, obs, nf, matvec_chunk or (obs_chunk if remat else n)),
                   huber_delta,
                   robust_kind or "huber", model if dist is not None else None, remat,
-                  None if remat else factor_dtype, timer)
+                  None if remat else factor_dtype, timer, axis_name)
     cam = state0._replace(X=state0.X[:0])
     X = state0.X.T.contiguous()  # (3, P)
 
@@ -733,9 +749,11 @@ def lm_optimize_sparse(
             acc_t = e_trial <= e_base
             pred = None
             if nielsen:
-                dDd = torch.sum(delta_X * ps.matE6[:3] * delta_X) + torch.sum(
-                    delta_xi * sy.diag_g * delta_xi)
-                g_d = torch.sum(ps.d_P * delta_X) + torch.sum(sy.d_F * delta_xi)
+                # the point-side sums of the gain ratio, all-reduced together
+                pts = _psum(torch.stack([torch.sum(delta_X * ps.matE6[:3] * delta_X),
+                                         torch.sum(ps.d_P * delta_X)]), axis_name)
+                dDd = pts[0] + torch.sum(delta_xi * sy.diag_g * delta_xi)
+                g_d = pts[1] + torch.sum(sy.d_F * delta_xi)
                 pred = 0.5 * (c * dDd - g_d)
             c, nu = _lm_damping(config, acc_t, c, nu, e_base, e_trial, pred)
             tries += 1
@@ -772,12 +790,13 @@ def lm_optimize_sparse(
 
 def fit_distortion_sparse(state: BAState, obs: SparseObs, f0: float, shared: bool = False,
                           huber_delta: float | None = None, dist=None, model: str | None = None,
-                          robust_kind: str = "huber", obs_chunk: int = 1 << 16,
-                          plans: dict | None = None) -> torch.Tensor:
+                          robust_kind: str = "huber", axis_name: str | None = None,
+                          obs_chunk: int = 1 << 16, plans: dict | None = None) -> torch.Tensor:
     """The distortion refit on the observation list: the dense core's
     per-camera normal-equation accumulands (every family, through
     ``_refit_rounds``/``_refit_terms``/``_refit_solve``) evaluated per
-    observation in chunks of ``obs_chunk``, then summed per camera. With
+    observation in chunks of ``obs_chunk``, then summed per camera, and
+    over the ranks of ``axis_name`` before each solve. With
     ``huber_delta`` the terms are IRLS-weighted by the residuals of the
     model ``dist`` the refit starts from. ``state.X`` is (P, 3)."""
     if model is None:
@@ -808,7 +827,7 @@ def fit_distortion_sparse(state: BAState, obs: SparseObs, f0: float, shared: boo
                              obs.xy[:, s:e].T[None], w[None], f0, model,
                              cur.index_select(0, ci[s:e]), round_)  # (C, nterms)
             terms += _cam_sum(t.T, ch)
-        cur = _refit_solve(terms.T, cur, model, round_, shared)
+        cur = _refit_solve(_psum(terms, axis_name).T, cur, model, round_, shared)
     return cur
 
 
@@ -847,9 +866,24 @@ def bundle_adjust_sparse(
     segment, the final ``c`` and ``nu``, ``converged`` (the |dE| <=
     delta_tol or never-accepted stop, which a segmented driver needs) and,
     with ``record_log``, the E curve of the last segment."""
-    dev = resolve_device(device)
-    obs = obs.to(dev)
-    dt = obs.xy.dtype
+    obs = obs.to(resolve_device(device))
+    return _adjust_list(obs, init_X, init_K, init_R, init_t, f0, axis, config, distortion,
+                        init_c, init_nu, cg_tol=cg_tol, cg_max_iter=cg_max_iter,
+                        obs_chunk=obs_chunk, factor_dtype=factor_dtype,
+                        matvec_chunk=matvec_chunk, factor_mode=factor_mode, timer=timer)
+
+
+def _adjust_list(obs: SparseObs, init_X, init_K, init_R, init_t, f0: float, axis: str,
+                 config: LMConfig, distortion, init_c=None, init_nu=None, gather=None,
+                 **kw) -> BAResult:
+    """``bundle_adjust_sparse`` on a list already on its device, shared with
+    the point-sharded driver (``parallel/sharded_ba_sparse.py``): the
+    gauge, the intrinsics, the distortion model and its
+    ``config.distortion_rounds`` of refit then LM segment, the log and the
+    result. ``init_X`` holds the list's points; ``gather`` takes the final
+    (P, 3) points to the whole cloud (None: they are the cloud). ``kw``
+    goes to ``lm_optimize_sparse``, its ``axis_name`` to the refit too."""
+    dev, dt = obs.xy.device, obs.xy.dtype
     K0 = as_tensor(init_K, dev, dt)
     nf = K0.shape[0]
     X0, R0, t0, info = normalize_gauge(as_tensor(init_X, dev, dt), as_tensor(init_R, dev, dt),
@@ -862,9 +896,7 @@ def bundle_adjust_sparse(
     if config.distortion_rounds > 0 and dist is None:
         dist = default_distortion(model, nf, dt, dev)
     robust_kind = resolve_robust(config.robust)
-    kw = dict(cg_tol=cg_tol, cg_max_iter=cg_max_iter, obs_chunk=obs_chunk,
-              factor_dtype=factor_dtype, matvec_chunk=matvec_chunk, factor_mode=factor_mode,
-              timer=timer, plans={})
+    kw["plans"] = {}
     n_seg = retries_seg = 0
     c_seg, nu_seg = init_c, init_nu
     seg_cfg = dataclasses.replace(config, record_log=False)
@@ -872,15 +904,16 @@ def bundle_adjust_sparse(
         dist = fit_distortion_sparse(
             state0, obs, f0, shared=config.distortion_shared,
             huber_delta=config.huber_delta if robust_kind is not None else None, dist=dist,
-            model=model, robust_kind=robust_kind or "huber", obs_chunk=obs_chunk,
-            plans=kw["plans"])
+            model=model, robust_kind=robust_kind or "huber", axis_name=kw.get("axis_name"),
+            obs_chunk=kw["obs_chunk"], plans=kw["plans"])
         state0, _, c_seg, nu_seg, n_it, r_it, *_ = lm_optimize_sparse(
             obs, state0, free, f0, seg_cfg, init_c=c_seg, init_nu=nu_seg, dist=dist, **kw)
         n_seg += n_it
         retries_seg += r_it
     final, e, c_f, nu_f, n_iter, n_retries, cg_total, scalar_log, done = lm_optimize_sparse(
         obs, state0, free, f0, config, init_c=c_seg, init_nu=nu_seg, dist=dist, **kw)
-    Xg, Rg, tg = restore_gauge(info, final.X, final.R, final.t)
+    X = final.X if gather is None else gather(final.X)
+    Xg, Rg, tg = restore_gauge(info, X, final.R, final.t)
     log = {"n_solver_retries": n_retries, "n_solver_retries_total": n_retries + retries_seg,
            "c": c_f, "nu": nu_f, "cg_iters_total": cg_total, "converged": done}
     if scalar_log is not None:

@@ -1,9 +1,10 @@
 """parallel of the PyTorch port (counterpart of mvrecon_tpu/parallel): the
-scene-batched pipelines on one device, the meshes of ranks, point-sharded
-bundle adjustment (the dense and the chunked core over the ``points``
-axis), the point-sharded covariance and perspective calibration, and the
-point-sharded perspective pipeline. The sharded affine, 2D and sparse
-paths are not ported yet."""
+scene-batched pipelines on one device and their scene sharding
+(``shard_scenes``), the meshes of ranks, point-sharded bundle adjustment
+(the dense, chunked and sparse cores over the ``points`` axis), the
+point-sharded covariance, perspective and affine calibrations, and the
+point-sharded perspective and affine pipelines. Only the 2D (points x
+cameras) BA, ``sharded_ba_2d``, is not ported yet."""
 
 from .mesh import hybrid_scene_point_mesh, make_mesh, scene_point_mesh  # noqa: F401
 from .batched import batched_affine_reconstruction, batched_euclidean_reconstruction  # noqa: F401
@@ -12,5 +13,9 @@ from .sharded_ba import (  # noqa: F401
     sharded_bundle_adjust_chunked,
     sharded_lm_step,
 )
+from .sharded_affine import sharded_affine_self_calibration  # noqa: F401
 from .sharded_covariance import sharded_ba_covariance  # noqa: F401
-from .pipelines import sharded_euclidean_reconstruction  # noqa: F401
+from .pipelines import (  # noqa: F401
+    sharded_affine_reconstruction,
+    sharded_euclidean_reconstruction,
+)

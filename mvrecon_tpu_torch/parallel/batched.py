@@ -10,7 +10,9 @@ others go on (``ops/lanes.py``). ``scene_chunk`` runs blocks of that many
 scenes one after another, as ``lax.map(batch_size=...)`` does, so the
 device memory stays that of one block.
 
-Scene sharding over several cards (``shard_scenes``) is not ported yet.
+Scene sharding over ranks (``shard_scenes``): each rank takes its block
+of the scenes axis and runs the batched pipelines on it with no
+collective, JAX's pure data parallelism.
 """
 
 from __future__ import annotations
@@ -27,7 +29,10 @@ from ..models.pipelines import (
     affine_reconstruction,
     euclidean_reconstruction,
 )
+from ..runtime.distributed import distribute_array
 from ..runtime.profiling import StageTimer
+
+SCENES_AXIS = "scenes"
 
 
 def _merge_logs(logs: list[dict]) -> dict:
@@ -192,3 +197,14 @@ def batched_euclidean_to_convergence(
         status=res.status,
         ba_log={"c": c, "nu": nu, "n_solver_retries": retries, "phases": phases},
     )
+
+
+def shard_scenes(x, mesh) -> torch.Tensor:
+    """This rank's block of the scenes axis of a host (S, ...) batch, on
+    its device: the S scenes split in contiguous blocks over the mesh's
+    ``scenes`` axis (S must divide by its size), as JAX's
+    ``NamedSharding`` of that axis places them. The batched pipelines then
+    run on the block with no collective; the caller gathers the results
+    it needs (JAX leaves that to XLA), for example with
+    ``runtime.distributed.gather_array(mesh, result, ("scenes",))``."""
+    return distribute_array(mesh, (SCENES_AXIS,), x)

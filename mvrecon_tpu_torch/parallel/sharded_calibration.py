@@ -59,8 +59,7 @@ from ..models.perspective import (
 from ..ops.linalg import eigh
 from ..runtime.distributed import distribute_array, gather_array
 from .mesh import bind_axes, mesh_shape
-
-POINTS_AXIS = "points"
+from .sharded_ba import POINTS_AXIS
 
 
 def _rank4_subspace(wm_l: torch.Tensor, axis_name: str | None):

@@ -18,7 +18,10 @@ JAX's ``local_device_count`` (devices per process) becomes ranks per host.
   block of a host array to its device;
 - ``gather_array``: the global array back on every rank, by an all-reduce
   of a zero-filled buffer (the port's collectives are ``all_reduce`` and
-  ``broadcast`` only, the two that gloo carries for CUDA tensors).
+  ``broadcast`` only, the two that gloo carries for CUDA tensors);
+- ``broadcast_array``: one rank's host array on every rank's host, through
+  a device buffer of one rank's share, so a command draws its synthetic
+  scene on one card only.
 
 Launch N ranks with ``torchrun --nproc-per-node N script.py`` (or
 ``python -m torch.distributed.run``) and call ``initialize`` in each with
@@ -233,3 +236,28 @@ def gather_array(mesh, local: torch.Tensor, spec) -> torch.Tensor:
         dist.all_reduce(buf, group=mesh.get_group(axis))
         out = buf
     return out
+
+
+def broadcast_array(arr, shape, dtype: torch.dtype, device=None, src: int = 0) -> torch.Tensor:
+    """The host tensor ``arr`` of rank ``src`` (None on the other ranks), of
+    the ``shape`` that every rank passes, on the host of every rank of the
+    process group, in ``dtype``: its values in blocks of 1/N of them, each
+    through one block-sized buffer on this rank's device (default:
+    ``local_device``), so no rank but ``src`` holds the whole array on its
+    device."""
+    dev = device or local_device()
+    is_src = dist.get_rank() == src
+    shape = tuple(shape)
+    numel = int(np.prod(shape))
+    flat = (arr.to(dtype).reshape(-1) if is_src
+            else torch.empty(numel, dtype=dtype))
+    block = max(-(-numel // dist.get_world_size()), 1)
+    buf = torch.empty(block, dtype=dtype, device=dev)
+    for lo in range(0, numel, block):
+        n = min(block, numel - lo)
+        if is_src:
+            buf[:n].copy_(flat[lo:lo + n])
+        dist.broadcast(buf, src)
+        if not is_src:
+            flat[lo:lo + n].copy_(buf[:n])
+    return flat.view(shape)

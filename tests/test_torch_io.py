@@ -12,8 +12,7 @@ JAX package on the CPU:
   ``--optimize-distortion 1``, and the same undistorted pinhole model; on a
   BAL file (radial) too;
 - ``--sparse`` runs; ``--shard-points 2`` without a launcher raises,
-  naming torchrun, and with ``--sparse`` raises ``NotImplementedError``
-  naming the ROADMAP item that ports it.
+  naming torchrun, with the dense core and with ``--sparse`` alike.
 """
 
 import json
@@ -249,10 +248,9 @@ def test_bal_unported_options_raise(tmp_path, capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["sparse"] is True and rec["observations"] == int(vis.sum())
     assert rec["ba_iterations"] <= 2 and np.isfinite(rec["reprojection_error"])
-    # the sharded dense and chunked cores run under a launcher: two ranks
-    # without one raise, naming torchrun; the sharded sparse core is not
-    # ported, so --sparse --shard-points raises
+    # the sharded dense, chunked and sparse cores run under a launcher: two
+    # ranks without one raise, naming torchrun
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tmain(["bal", path, "--shard-points", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 4d"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tmain(["bal", path, "--shard-points", "2", "--device", "cpu", "--sparse"])

@@ -1,13 +1,15 @@
-"""Point-sharded bundle adjustment, calibration, covariance and
-pipelines of the PyTorch port on the CPU, in float64, against the JAX
-package's sharded functions and the port's unsharded ones.
+"""Point-sharded bundle adjustment (dense, chunked and sparse cores),
+calibration (perspective and affine), covariance and pipelines of the
+PyTorch port on the CPU, in float64, against the JAX package's sharded
+functions and the port's unsharded ones.
 
-- In process: ``pad_points`` against JAX's on numpy inputs; the shape
-  rules of ``make_mesh``, ``scene_point_mesh`` and
+- In process: ``pad_points`` and ``partition_sparse_obs`` against JAX's on
+  numpy inputs; the shape rules of ``make_mesh``, ``scene_point_mesh`` and
   ``hybrid_scene_point_mesh`` against JAX's on its 8 virtual CPU devices
-  for 1-8 ranks (the port's meshes over a fake process group of 8); an
-  unbound axis name, lanes under an axis name and the paths of later
-  slices raise.
+  for 1-8 ranks (the port's meshes over a fake process group of 8), and
+  ``shard_scenes``'s block on that group; an unbound axis name, lanes
+  under an axis name, the solver hook of a later slice and an indivisible
+  P under the affine calibration raise.
 - Spawned ranks: one group of 2 gloo ranks runs every case of ``CASES``
   once (this file is the rank program, under ``__main__``), and one
   group of 3 ranks the cases of ``CASES3``, whose last rank holds 60
@@ -26,12 +28,19 @@ package's sharded functions and the port's unsharded ones.
   primary on 3 ranks), the sharded perspective pipeline (plain, masked,
   on a hybrid mesh), the large pipeline with a mesh, the sharded
   covariance (plain, and masked with Huber and a radial distortion; on 3
-  ranks padded), and the commands ``euclidean``, ``reconstruct`` and
-  ``bal`` (dense and chunked) with ``--shard-points 2`` through
-  ``cli.main``, on files the fixture writes. Calibrations and pipelines
-  are compared up to one global rotation of the frame, taken from camera
-  0 (the eigenvector signs of the two backends' eigensolvers may turn the
-  calibrated frame; JAX's own ``tests/test_parallel.py`` compares so).
+  ranks padded), the sharded sparse core (stored with the E curve,
+  recompute at ``obs_chunk=173``, Huber with a radial refit; on 3 ranks P
+  = 199, so the last rank holds two padded points: JAX's bounds in
+  ``tests/test_ba_sparse.py``), the affine calibration per model and the
+  affine pipeline, ``shard_scenes`` over a scenes mesh, and the commands
+  ``euclidean``, ``affine``, ``reconstruct`` and ``bal`` (dense, chunked
+  and ``--sparse``) with ``--shard-points 2`` through ``cli.main``, on
+  files the fixture writes; ``euclidean`` and ``affine`` draw their scene
+  on rank 0 alone. Perspective calibrations and pipelines are compared up
+  to one global rotation of the frame, taken from camera 0 (the
+  eigenvector signs of the two backends' eigensolvers may turn the
+  calibrated frame; JAX's own ``tests/test_parallel.py`` compares so); the
+  affine ones pin their signs.
 
 Hang guard: each group's ranks run with one torch thread, are killed
 after ``RANK_TIMEOUT_S``, and a rendezvous port that is taken is retried
@@ -64,6 +73,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 AXIS = "x-up_z-forward"
 RANK_TIMEOUT_S = 120
 CHUNK = 25  # 5 chunks on each of 2 ranks, 3 on each of 3
+# the sparse cases: tests/test_ba_sparse.py's schedule and CG tolerance
+SPARSE_CFG = dict(scale_factor=4.0, delta_tol=0.0, max_iter=3, accept_divisor=1.0,
+                  init_damping=3e-3, damping="nielsen")
+SPARSE_KW = dict(cg_tol=1e-12, cg_max_iter=500)
 
 # name: (core, data, mesh, LMConfig fields); data "radial" and "opencv" are
 # the scene rendered through that distortion, "masked" a random 85 % of
@@ -107,6 +120,25 @@ CASES = {
                                                    "--max-iter", "10"])),
     "cli_bal_chunked": ("cli", "bal", "points", dict(argv=[
         "bal", "{dir}/problem.bal", "--float64", "--max-iter", "8", "--chunk-size", "25"])),
+    "cli_affine": ("cli", "none", "points", dict(argv=["affine", "--n-images", "8",
+                                                       "--float64"])),
+    "cli_bal_sparse": ("cli", "bal", "points", dict(argv=[
+        "bal", "{dir}/problem.bal", "--sparse", "--float64", "--max-iter", "5", "--huber",
+        "0.05", "--optimize-distortion", "1", "--cg-max-iter", "60"])),
+    # the sparse core on the observation list of the data's visible
+    # entries, LMConfig fields beside the core's keywords ("kw"); stored
+    # with the E curve, recompute, and Huber with one radial refit
+    "sparse": ("sparse", "masked", "points", dict(SPARSE_CFG, record_log=True)),
+    "sparse_recompute": ("sparse", "masked", "points",
+                         dict(SPARSE_CFG, kw=dict(factor_mode="recompute", obs_chunk=173))),
+    "sparse_huber_refit": ("sparse", "radial+masked", "points",
+                           dict(SPARSE_CFG, robust="huber", huber_delta=0.01,
+                                distortion_rounds=1)),
+    # affine calibration per model and the affine pipeline: the 12-view tube
+    "affine_orthographic": ("affine", "tube12", "points", dict(model="orthographic")),
+    "affine_symmetric": ("affine", "tube12", "points", dict(model="symmetric")),
+    "affine_paraperspective": ("affine", "tube12", "points", dict(model="paraperspective")),
+    "affine_pipeline": ("affine_pipeline", "tube12", "points", dict(max_iter=12)),
 }
 CASES3 = {
     "dense3": ("dense", "padded", "points",
@@ -117,9 +149,13 @@ CASES3 = {
     "covariance3": ("covariance", "padded", "points", {}),
     "covariance_robust3": ("covariance", "radial+padded", "points",
                            dict(robust="huber", huber_delta=0.05)),
+    # P = 199: the last rank holds 65 points and 2 padded ones, and only 7
+    # of its points are seen
+    "sparse3": ("sparse", "padded", "points", dict(SPARSE_CFG)),
 }
 GROUPS = {2: CASES, 3: CASES3}
 BA_CORES = ("dense", "chunked", "lm_step")
+NEW_CORES = ("sparse", "affine", "affine_pipeline")
 KR_CHUNK = 128  # "kr": 256 points a rank, so two chunks a rank, four unsharded
 OTHER_COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_gather_object", "all_to_all",
                      "all_to_all_single", "barrier", "batch_isend_irecv",
@@ -443,28 +479,164 @@ def run_jax_more(case: str, world: int) -> dict:
     return out
 
 
+def sparse_list(case: str, world: int):
+    """A sparse case's global numpy inputs: the observation list of the
+    visible entries of ``problem``'s x, sorted by point (pi, ci, xy
+    (N, 2)), X0, K, R, t0, and the case's LMConfig fields and keywords."""
+    fields = dict(GROUPS[world][case][3])
+    kw = dict(SPARSE_KW, **fields.pop("kw", {}))
+    x, X0, K, R, t0, vis, _ = problem(case, world)
+    pi, ci = np.nonzero(np.ones(x.shape[:2]) if vis is None else vis > 0)
+    return (pi, ci, x[pi, ci], X0, K, R, t0), fields, kw
+
+
+def _sparse_arrays(res) -> dict:
+    out = result_arrays(res)
+    out.update(retries=np.asarray(res.log["n_solver_retries"]),
+               cg_iters=np.asarray(res.log["cg_iters_total"]))
+    if "reprojection_error" in res.log:
+        out["curve"] = np.asarray(res.log["reprojection_error"])
+    return out
+
+
+AFFINE_KEYS = ("S", "R", "ok")
+
+
+def run_port_new(case: str, world: int, mesh=None) -> dict:
+    """A sparse, affine-calibration or affine-pipeline case through the
+    port, sharded over ``mesh`` or unsharded when ``mesh`` is None (the
+    unsharded calibration with ``canonical_signs=True``)."""
+    from mvrecon_tpu_torch.models import bundle_adjustment_sparse as tbs
+    from mvrecon_tpu_torch.models.affine import affine_self_calibration
+    from mvrecon_tpu_torch.models.pipelines import affine_reconstruction
+    from mvrecon_tpu_torch.parallel import (
+        sharded_affine_reconstruction,
+        sharded_affine_self_calibration,
+    )
+    from mvrecon_tpu_torch.parallel.sharded_ba_sparse import sharded_bundle_adjust_sparse
+
+    core, _, _, fields = GROUPS[world][case]
+    if core == "sparse":
+        (pi, ci, xy, X0, K, R, t0), fields, kw = sparse_list(case, world)
+        kw.update(axis=AXIS, config=LMConfig(**fields), device="cpu")
+        if mesh is None:
+            res = tbs.bundle_adjust_sparse(tbs.make_sparse_obs(pi, ci, xy, device="cpu"), X0, K,
+                                           R, t0, **kw)
+        else:
+            res = sharded_bundle_adjust_sparse(mesh, pi, ci, xy, X0, K, R, t0, **kw)
+        return _sparse_arrays(res)
+    x, _ = tube(case, world)
+    f = np.ones(x.shape[0])
+    if core == "affine":
+        model = fields["model"]
+        fm = f if model == "paraperspective" else None
+        if mesh is None:
+            S, R = affine_self_calibration(x, model=model, f=fm, canonical_signs=True,
+                                           device="cpu")
+            return {"S": S.numpy(), "R": R.numpy(), "ok": np.asarray(True)}
+        S, R, ok = sharded_affine_self_calibration(mesh, x, model=model, f=fm, device="cpu")
+        return {"S": S.numpy(), "R": R.numpy(), "ok": np.asarray(bool(ok))}
+    cfg = LMConfig(scale_factor=2.0, delta_tol=1e-8, **fields)
+    if mesh is None:
+        return _fields(affine_reconstruction(x, f, config=cfg, device="cpu"), PIPELINE_KEYS)
+    return _fields(sharded_affine_reconstruction(mesh, x, f, config=cfg, device="cpu"),
+                   PIPELINE_KEYS)
+
+
+_JAX_NEW: dict = {}
+
+
+def run_jax_new(case: str, world: int) -> dict:
+    """A sparse, affine-calibration or affine-pipeline case through the
+    JAX package's sharded function on a points mesh of ``world`` devices
+    (computed once a case)."""
+    if case in _JAX_NEW:
+        return _JAX_NEW[case]
+    import jax.numpy as jnp
+
+    from mvrecon_tpu.config import LMConfig as JLMConfig
+    from mvrecon_tpu.parallel.pipelines import sharded_affine_reconstruction
+    from mvrecon_tpu.parallel.sharded_affine import sharded_affine_self_calibration
+    from mvrecon_tpu.parallel.sharded_ba_sparse import sharded_bundle_adjust_sparse
+
+    core, _, _, fields = GROUPS[world][case]
+    mesh = _jax_mesh(world)
+    if core == "sparse":
+        (pi, ci, xy, *state), fields, kw = sparse_list(case, world)
+        res = sharded_bundle_adjust_sparse(mesh, pi, ci, xy, *map(jnp.asarray, state), f0=1.0,
+                                           axis=AXIS, config=JLMConfig(**fields), **kw)
+        out = _sparse_arrays(res)
+    else:
+        x, _ = tube(case, world)
+        f = jnp.ones(x.shape[0])
+        if core == "affine":
+            model = fields["model"]
+            S, R, ok = sharded_affine_self_calibration(
+                mesh, jnp.asarray(x), model=model, f=f if model == "paraperspective" else None)
+            out = {"S": np.asarray(S), "R": np.asarray(R), "ok": np.asarray(ok)}
+        else:
+            res = sharded_affine_reconstruction(
+                mesh, jnp.asarray(x), f,
+                config=JLMConfig(scale_factor=2.0, delta_tol=1e-8, **fields))
+            out = _fields(res, PIPELINE_KEYS)
+    _JAX_NEW[case] = out
+    return out
+
+
 def run_cli(case: str, world: int, outdir: str) -> dict:
     """A command of ``cli.main`` with ``--shard-points`` ``world`` on the
-    CPU: its standard output (empty but on rank 0), and the size of the
+    CPU: its standard output (empty but on rank 0); the size of the
     largest array that the command moved to its device itself (through
-    ``config.as_tensor``, which the commands import when they run)."""
+    ``config.as_tensor``, which the commands import when they run); and,
+    for the synthetic scenes, the observations each rank drew, the largest
+    buffer that ``broadcast_array`` sent and the x it returned."""
+    import torch.distributed as dist
+
     import mvrecon_tpu_torch.config as tconfig
     from mvrecon_tpu_torch.cli import main
+    from mvrecon_tpu_torch.geometry import scenes as tscenes
+    from mvrecon_tpu_torch.runtime import distributed as tdist
 
     argv = [a.replace("{dir}", outdir) for a in GROUPS[world][case][3]["argv"]]
-    buf, largest, convert = io.StringIO(), [0], tconfig.as_tensor
+    buf = io.StringIO()
+    rec = {"largest_moved": 0, "drawn": 0, "largest_broadcast": 0}
+    saved = tconfig.as_tensor, tscenes.make_synthetic_scene, tdist.broadcast_array
+    xs = []
 
     def recorded(a, device, dtype):
-        largest[0] = max(largest[0], int(np.prod(np.shape(a))))
-        return convert(a, device, dtype)
+        rec["largest_moved"] = max(rec["largest_moved"], int(np.prod(np.shape(a))))
+        return saved[0](a, device, dtype)
 
-    tconfig.as_tensor = recorded
+    def drawn(*args, **kwargs):
+        sc = saved[1](*args, **kwargs)
+        rec["drawn"] += sc.x.numel()
+        return sc
+
+    def broadcast_array(*args, **kwargs):
+        broadcast = dist.broadcast
+
+        def sized(tensor, *a, **k):
+            rec["largest_broadcast"] = max(rec["largest_broadcast"], tensor.numel())
+            return broadcast(tensor, *a, **k)
+
+        dist.broadcast = sized
+        try:
+            xs.append(saved[2](*args, **kwargs))
+        finally:
+            dist.broadcast = broadcast
+        return xs[-1]
+
+    tconfig.as_tensor, tscenes.make_synthetic_scene, tdist.broadcast_array = (
+        recorded, drawn, broadcast_array)
     try:
         with contextlib.redirect_stdout(buf):
             assert main(argv + ["--shard-points", str(world), "--device", "cpu"]) == 0
     finally:
-        tconfig.as_tensor = convert
-    return {"stdout": np.asarray(buf.getvalue()), "largest_moved": np.asarray(largest[0])}
+        tconfig.as_tensor, tscenes.make_synthetic_scene, tdist.broadcast_array = saved
+    out = {"stdout": np.asarray(buf.getvalue()), **{k: np.asarray(v) for k, v in rec.items()}}
+    if xs:
+        out["x"] = xs[0].numpy()
+    return out
 
 
 # ------------------------------------------------------------ the ranks
@@ -534,7 +706,8 @@ def _cases(*cores) -> list[tuple[int, str]]:
 
 ALL = _cases(*BA_CORES)
 CALIBS, PIPELINES, COVS = _cases("calib"), _cases("pipeline"), _cases("covariance")
-ARRAYS = _cases(*BA_CORES, "calib", "pipeline", "large", "covariance")
+ARRAYS = _cases(*BA_CORES, "calib", "pipeline", "large", "covariance", *NEW_CORES)
+SPARSES, AFFINES = _cases("sparse"), _cases("affine")
 CLIS = [c for _, c in _cases("cli")]
 
 
@@ -716,6 +889,77 @@ def test_covariance_matches_unsharded(ranks, world, case):
     _assert_covariance_close(_case(ranks[world][0], case), run_port_more(case, world), case)
 
 
+def _assert_sparse_close(got: dict, want: dict, world: int, case: str):
+    """JAX's bounds (``tests/test_ba_sparse.py``): E rtol 1e-8, X atol
+    1e-7, the distortion atol 1e-10; in recompute mode E rtol 1e-10 and X
+    atol 1e-8; the same iterations and retries; R and t as X; the E curve
+    as E."""
+    remat = GROUPS[world][case][3].get("kw", {}).get("factor_mode") == "recompute"
+    e_rtol, x_atol = (1e-10, 1e-8) if remat else (1e-8, 1e-7)
+    assert got["X"].shape == want["X"].shape
+    np.testing.assert_allclose(got["error"], want["error"], rtol=e_rtol, err_msg=case)
+    for key in ("X", "R", "t"):
+        np.testing.assert_allclose(got[key], want[key], atol=x_atol, err_msg=f"{case} {key}")
+    assert got.keys() & {"distortion", "curve"} == want.keys() & {"distortion", "curve"}
+    if "distortion" in want:
+        np.testing.assert_allclose(got["distortion"], want["distortion"], atol=1e-10,
+                                   err_msg=f"{case} distortion")
+    if "curve" in want:
+        np.testing.assert_allclose(got["curve"], want["curve"], rtol=e_rtol, err_msg=case)
+    assert (int(got["n_iter"]), int(got["retries"])) == (int(want["n_iter"]),
+                                                         int(want["retries"])), case
+
+
+@pytest.mark.parametrize("world,case", SPARSES, ids=[c for _, c in SPARSES])
+def test_sparse_matches_jax(ranks, world, case):
+    _assert_sparse_close(_case(ranks[world][0], case), run_jax_new(case, world), world, case)
+
+
+@pytest.mark.parametrize("world,case", SPARSES, ids=[c for _, c in SPARSES])
+def test_sparse_matches_unsharded(ranks, world, case):
+    _assert_sparse_close(_case(ranks[world][0], case), run_port_new(case, world), world, case)
+
+
+def _assert_affine_close(got: dict, want: dict, case: str):
+    """JAX's bounds (``tests/test_parallel.py``): ok, S and R atol 1e-6."""
+    assert bool(got["ok"]) and bool(want["ok"]), case
+    for key in ("S", "R"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-6, err_msg=f"{case} {key}")
+
+
+@pytest.mark.parametrize("world,case", AFFINES, ids=[c for _, c in AFFINES])
+def test_affine_calibration_matches_jax(ranks, world, case):
+    _assert_affine_close(_case(ranks[world][0], case), run_jax_new(case, world), case)
+
+
+@pytest.mark.parametrize("world,case", AFFINES, ids=[c for _, c in AFFINES])
+def test_affine_calibration_matches_unsharded(ranks, world, case):
+    """Against ``affine_self_calibration(canonical_signs=True)``: the same
+    sign convention, so no rotation of the frame."""
+    _assert_affine_close(_case(ranks[world][0], case), run_port_new(case, world), case)
+
+
+def test_affine_pipeline_matches_jax(ranks):
+    _assert_pipeline_close(_case(ranks[2][0], "affine_pipeline"),
+                           run_jax_new("affine_pipeline", 2), "affine_pipeline")
+
+
+def test_affine_pipeline_matches_unsharded(ranks):
+    """Against ``affine_reconstruction``, whose calibration pins the same
+    signs; the same status 0, iterations, E rtol 1e-7."""
+    _assert_pipeline_close(_case(ranks[2][0], "affine_pipeline"),
+                           run_port_new("affine_pipeline", 2), "affine_pipeline")
+
+
+@pytest.mark.parametrize("world", sorted(GROUPS))
+def test_shard_scenes_gives_each_rank_its_block(ranks, world):
+    """``shard_scenes`` over a ``scenes`` mesh of every rank: rank r holds
+    the r-th contiguous block of the batch."""
+    scenes = np.arange(world * 2 * 3, dtype=np.float64).reshape(world * 2, 3)
+    for r, out in enumerate(ranks[world]):
+        np.testing.assert_array_equal(out["meta.scene_block"], scenes[2 * r:2 * r + 2])
+
+
 def _record(out: dict, case: str) -> dict:
     lines = str(out[f"{case}.stdout"]).strip().splitlines()
     assert len(lines) == 1, lines
@@ -730,15 +974,39 @@ def test_rank_0_alone_prints(ranks, case):
     assert str(ranks[2][1][f"{case}.stdout"]) == ""
 
 
-@pytest.mark.parametrize("case", ["cli_reconstruct", "cli_bal", "cli_bal_chunked"])
+def _synthetic_x(argv: list) -> np.ndarray:
+    """The x that ``euclidean`` or ``affine`` draws unsharded on the CPU
+    with ``argv``'s views and default seed, points, noise and f."""
+    from mvrecon_tpu_torch.cli import build_parser
+
+    args = build_parser().parse_args(argv + ["--device", "cpu"])
+    gen = torch.Generator(device="cpu").manual_seed(args.seed)
+    return make_synthetic_scene(gen, n_images=args.n_images,
+                                n_slices=max(1, args.n_points // 20), n_angles=20, f=args.f,
+                                f0=args.f0, noise=args.noise, dtype=torch.float64).x.numpy()
+
+
+@pytest.mark.parametrize("case", ["cli_reconstruct", "cli_bal", "cli_bal_chunked",
+                                  "cli_bal_sparse", "cli_euclidean", "cli_affine"])
 def test_sharded_commands_leave_the_observations_on_the_host(ranks, case):
     """Under ``--shard-points`` no rank moves the whole (P, F) observations
     or visibility to its device: the command hands host arrays to the
     sharded entry points, which copy only the rank's block. ``bal`` moves
-    its cameras, which shows that the recording sees the command's moves."""
+    its cameras, which shows that the recording sees the command's moves.
+    ``euclidean`` and ``affine`` draw their scene on rank 0 alone; rank 1
+    draws nothing and receives at most half of it at a time, and every
+    rank hands the unsharded command's x to the pipeline."""
     rec = _record(ranks[2][0], case)
-    npts, nf = ((rec["n_points"], rec["n_views"]) if case == "cli_reconstruct"
+    npts, nf = ((rec["n_points"], rec["n_views"]) if "points" not in rec
                 else (rec["points"], rec["cams"]))
+    if case in ("cli_euclidean", "cli_affine"):
+        whole = npts * nf * 2
+        want = _synthetic_x(CASES[case][3]["argv"])
+        for r, rank in enumerate(ranks[2]):
+            assert int(rank[f"{case}.drawn"]) == (whole if r == 0 else 0)
+            assert 0 < int(rank[f"{case}.largest_broadcast"]) <= whole // 2
+            np.testing.assert_array_equal(rank[f"{case}.x"], want)
+        return
     for rank in ranks[2]:
         moved = int(rank[f"{case}.largest_moved"])
         assert moved < npts * nf
@@ -805,6 +1073,59 @@ def test_cli_bal_matches_jax(ranks, capsys, case):
     for key in ("cams", "points", "observations", "ba_iterations", "shard_points"):
         assert got[key] == want[key], key
     np.testing.assert_allclose(got["reprojection_error"], want["reprojection_error"], rtol=1e-8)
+
+
+def test_cli_affine_matches_unsharded_and_jax(ranks, capsys):
+    """``affine --shard-points 2`` against the unsharded command (the same
+    status and BA iterations, E to 1e-8) and against JAX's
+    ``sharded_affine_reconstruction`` on the x the ranks drew (E rtol
+    1e-7); JAX's record keys."""
+    import jax.numpy as jnp
+
+    from mvrecon_tpu.config import LMConfig as JLMConfig
+    from mvrecon_tpu.parallel.pipelines import sharded_affine_reconstruction
+    from mvrecon_tpu_torch.cli import main
+
+    got = _record(ranks[2][0], "cli_affine")
+    argv = CASES["cli_affine"][3]["argv"]
+    main(argv + ["--device", "cpu"])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["status"] == want["status"] == 0
+    assert got["ba_iterations"] == want["ba_iterations"]
+    np.testing.assert_allclose(got["reprojection_error"], want["reprojection_error"], rtol=1e-8)
+    assert {"command", "status", "ba_iterations", "reprojection_error", "n_points", "model",
+            "shard_points"} <= set(got)
+    assert set(got["stage_walls_s"]) == {"sharded_affine_self_calibration",
+                                         "sharded_bundle_adjustment"}
+    x = ranks[2][0]["cli_affine.x"]
+    res = sharded_affine_reconstruction(_jax_mesh(2), jnp.asarray(x), jnp.ones(x.shape[0]),
+                                        config=JLMConfig(scale_factor=2.0, delta_tol=1e-8,
+                                                         max_iter=100))
+    assert got["status"] == int(res.status) and got["ba_iterations"] == int(res.n_iter)
+    np.testing.assert_allclose(got["reprojection_error"], float(res.error), rtol=1e-7)
+
+
+def test_cli_bal_sparse_matches_jax(ranks, capsys):
+    """``bal --sparse --shard-points 2`` against the JAX package's command
+    with the same flags, which runs ``sharded_bundle_adjust_sparse`` on a
+    points mesh of 2 devices, and against the port's unsharded command:
+    the same counts, E and the distortion's means rtol 1e-6 (the unsharded
+    command's bound against JAX's, ``tests/test_torch_sparse_runtime.py``)."""
+    from mvrecon_tpu.cli import main as jmain
+    from mvrecon_tpu_torch.cli import main
+
+    got = _record(ranks[2][0], "cli_bal_sparse")
+    argv = [a.replace("{dir}", str(ranks["dir"])) for a in CASES["cli_bal_sparse"][3]["argv"]]
+    jmain(argv + ["--shard-points", "2"])
+    want_jax = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    main(argv + ["--device", "cpu"])
+    want_port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for want in (want_jax, want_port):
+        for key in ("cams", "points", "observations", "ba_iterations", "cg_iterations"):
+            assert got[key] == want[key], key
+        for key in ("reprojection_error", "k1_mean", "k2_mean"):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-6, err_msg=key)
+    assert got["shard_points"] == want_jax["shard_points"] == 2
 
 
 def _command(args: list, torchrun: bool = False) -> subprocess.CompletedProcess:
@@ -926,16 +1247,13 @@ def test_process_meshes_match_jax(fake_world):
 
 
 def test_axis_name_errors():
-    """An axis name no sharded call binds raises ``ValueError``, as do
-    lanes under an axis name; the sparse core's ``axis_name``, the solver
-    hook and ``bal --sparse --shard-points`` raise ``NotImplementedError``
-    naming item 4d, ``affine --shard-points`` and
-    ``sharded_affine_reconstruction`` naming item 4c.
-    (``euclidean_reconstruction_large(mesh=)`` and ``bal --shard-points``
-    run: the ``large`` and ``cli_bal`` cases.)"""
+    """An axis name no sharded call binds raises ``ValueError``, in the
+    dense and the sparse core, as do lanes under an axis name; the solver
+    hook raises ``NotImplementedError`` naming item 4 (the 2D BA). Without
+    a launcher ``affine`` and ``bal --sparse`` with ``--shard-points 2``
+    fail and name torchrun, as the other sharded commands do."""
     from mvrecon_tpu_torch.__main__ import main
-    from mvrecon_tpu_torch.models.bundle_adjustment_sparse import lm_optimize_sparse
-    from mvrecon_tpu_torch.parallel.pipelines import sharded_affine_reconstruction
+    from mvrecon_tpu_torch.models import bundle_adjustment_sparse as tbs
 
     x, X0, K, R, t0, _, _ = problem("dense", 2)
     (X, f, u, t, Rn), xs, vs, free = step_inputs(x, X0, R, t0)
@@ -946,16 +1264,15 @@ def test_axis_name_errors():
     lanes = tba.BAState(*(a[None] for a in state))
     with pytest.raises(ValueError, match="one problem"):
         tba.lm_lanes(targs[0], lanes, *targs[2:], LMConfig(), axis_name="points")
-    with pytest.raises(NotImplementedError, match="item 4d"):
-        lm_optimize_sparse(None, state, targs[3], 1.0, LMConfig(), axis_name="points")
-    with pytest.raises(NotImplementedError, match="item 4d"):
+    pi, ci = np.nonzero(vs > 0)
+    obs = tbs.make_sparse_obs(pi, ci, xs[pi, ci], device="cpu")
+    with pytest.raises(ValueError, match="not bound"):
+        tbs.lm_optimize_sparse(obs, state, targs[3], 1.0, LMConfig(), axis_name="points")
+    with pytest.raises(NotImplementedError, match="queue 1 item 4$"):
         tba.lm_optimize(*targs, LMConfig(), solver=tba._damped_solve)
-    with pytest.raises(NotImplementedError, match="item 4d"):
-        main(["bal", "unused.bal", "--sparse", "--shard-points", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        main(["affine", "--shard-points", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        sharded_affine_reconstruction(None, x.transpose(1, 0, 2), np.ones(12))
+    for argv in (["bal", "unused.bal", "--sparse"], ["affine"]):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            main(argv + ["--shard-points", "2", "--device", "cpu"])
 
 
 def test_calibration_rejects_an_indivisible_point_count(fake_world):
@@ -974,6 +1291,63 @@ def test_calibration_rejects_an_indivisible_point_count(fake_world):
         sharded_euclidean_reconstruction(mesh, x, device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         sharded_perspective_self_calibration(mesh, x[:, :200], method="svd", device="cpu")
+
+
+def test_affine_rejects_an_indivisible_point_count(fake_world):
+    """The sharded affine calibration and pipeline take P divisible by the
+    points-axis size (JAX's ``ValueError``, naming "divisible"), raised
+    before any collective; an unknown model or a paraperspective call
+    without f raise as the unsharded calibration does."""
+    from mvrecon_tpu_torch.parallel import (
+        sharded_affine_reconstruction,
+        sharded_affine_self_calibration,
+    )
+    from mvrecon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh, x = make_mesh({"points": 4}), np.zeros((4, 201, 2))
+    with pytest.raises(ValueError, match="divisible"):
+        sharded_affine_self_calibration(mesh, x, model="orthographic", device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        sharded_affine_reconstruction(mesh, x, np.ones(4), device="cpu")
+    with pytest.raises(ValueError, match="unknown affine model"):
+        sharded_affine_self_calibration(mesh, x[:, :200], model="projective", device="cpu")
+    with pytest.raises(ValueError, match="requires focal lengths"):
+        sharded_affine_self_calibration(mesh, x[:, :200], device="cpu")
+
+
+def test_shard_scenes_takes_the_rank_s_block(fake_world):
+    """Rank 0 of a (scenes 4, points 2) mesh holds the first quarter of the
+    batch, on its device; a batch that does not split raises."""
+    from mvrecon_tpu_torch.parallel.batched import shard_scenes
+    from mvrecon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"scenes": 4, "points": 2})
+    x = np.arange(8 * 5 * 2, dtype=np.float32).reshape(8, 5, 2)
+    block = shard_scenes(x, mesh)
+    assert block.device.type == "cpu"
+    np.testing.assert_array_equal(block.numpy(), x[:2])
+    with pytest.raises(ValueError, match="does not split"):
+        shard_scenes(x[:6], mesh)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4, 7])
+def test_partition_sparse_obs_matches_jax(n_shards):
+    """``partition_sparse_obs`` equals JAX's array for array on the masked
+    problem's list (201 points), weights given and not."""
+    from mvrecon_tpu.parallel.sharded_ba_sparse import partition_sparse_obs as jpartition
+    from mvrecon_tpu_torch.parallel.sharded_ba_sparse import partition_sparse_obs
+
+    (pi, ci, xy, X0, *_), _, _ = sparse_list("sparse", 2)
+    w = np.random.default_rng(n_shards).uniform(0.5, 1.0, size=pi.shape)
+    for weights in (None, w):
+        got, pps = partition_sparse_obs(pi, ci, xy, X0.shape[0], n_shards, weights)
+        want, jpps = jpartition(pi, ci, xy, X0.shape[0], n_shards, weights)
+        assert pps == jpps
+        for g, j in zip(got, want):
+            assert g.numpy().dtype == np.asarray(j).dtype
+            np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+    with pytest.raises(ValueError, match="sorted by point_idx"):
+        partition_sparse_obs(pi[::-1], ci, xy, X0.shape[0], n_shards)
 
 
 def test_initialize_backend_rules():
@@ -1033,6 +1407,7 @@ def _guard_collectives(record: dict) -> None:
 
 
 def _rank_main(port: int, rank: int, world: int, outdir: str) -> None:
+    from mvrecon_tpu_torch.parallel.batched import shard_scenes
     from mvrecon_tpu_torch.parallel.mesh import hybrid_scene_point_mesh, make_mesh
     from mvrecon_tpu_torch.runtime.distributed import (
         distribute_array,
@@ -1060,7 +1435,9 @@ def _rank_main(port: int, rank: int, world: int, outdir: str) -> None:
     tbc.syrk_lower_accumulate, tbc._build_system_fused = counted_accumulate, counted_fused
     arr = np.arange(world * 5 * 2, dtype=np.float64).reshape(world * 5, 2)
     block = distribute_array(meshes["points"], ("points",), arr, "cpu")
-    out = {"meta.round_trip": np.asarray(
+    scenes = np.arange(world * 2 * 3, dtype=np.float64).reshape(world * 2, 3)
+    scene_block = shard_scenes(scenes, make_mesh({"scenes": world}))
+    out = {"meta.scene_block": scene_block.numpy(), "meta.round_trip": np.asarray(
         block.shape == (5, 2)
         and np.array_equal(gather_array(meshes["points"], block, ("points",)).numpy(), arr)
         and np.array_equal(replicate_array(meshes["points"], arr, "cpu").numpy(), arr))}
@@ -1068,6 +1445,8 @@ def _rank_main(port: int, rank: int, world: int, outdir: str) -> None:
         counts.update(k1=0, fused=0)
         if core == "cli":
             res = run_cli(case, world, outdir)
+        elif core in NEW_CORES:
+            res = run_port_new(case, world, meshes[mesh_kind])
         elif core in BA_CORES:
             res = run_port(case, world, meshes[mesh_kind])
         else:
