@@ -200,6 +200,22 @@ Phases, each of which stops the script with a non-zero exit on failure:
    --sparse``'s list through ``sharded_bundle_adjust_sparse`` at cg_tol
    1e-12 at one rank and two: E within 1e-10, the same iterations and
    retries, CG counts within 5 %;
+5k. the 2D (points x cameras) BA (``parallel/sharded_ba_2d.py``), after
+   5j, in the same one-rank NCCL group and two rank processes: 4c's
+   generator and schedule at 10,000 points x 2,000 views in float32
+   through ``sharded_bundle_adjust`` (1D, Cholesky; the reference) on the
+   NCCL rank, and ``sharded_bundle_adjust_2d`` in both matvec modes on a
+   1 x 1 mesh there and on a {points: 1, cameras: 2} mesh of the two
+   ranks: finite, below the start E, E / floor < 1.5, the ranks equal, no
+   launch, the peak memory a rank at 1 x 2 below 1 x 1's; the E gap to the
+   1D run printed. Then float64 at 1,000 points, 5 iterations,
+   ``cg_tol=1e-12``: E within 1e-7 of the 1D core's, ring within 1e-9 of
+   all_gather, no solve at its CG cap. Each run prints its retries, CG
+   iterations a solve, wall and peak memory a rank, and the cameras-axis
+   traffic (the gather's bytes and ms a call, the ring's point-to-point
+   bytes and ms a matvec, the pmax's bytes a solve) and the row block's
+   all-reduce over ``points`` (none on these meshes: a one-rank axis
+   sends nothing);
 5. the pipelines and the BA cores on small scenes on the card and on the
    CPU (plain versions), which must agree, the streamed core on the card
    with prefetch 0 and 2, which must agree bit for bit, both batched
@@ -217,15 +233,16 @@ Phases, each of which stops the script with a non-zero exit on failure:
 ``--points`` shrinks phases 4, 4i, 4k, 4n, 4o, 4r, 4e, 4y's chunked run,
 5a-5b and 5d (``--ba-iters`` sets the BA iterations of 4, 4e and 5d),
 ``--streamed-points`` phases 4b, 4l, 4j, 4p and 4s, ``--dense-points``
-phases 4c, 4d, 4k's second run, 4x, 4y's dense runs, 5c, 5e, 5f, 5i and
-5j's ``euclidean`` and ``affine``, ``--bal-points`` phases 4m, 4q, 4t, 4w,
+phases 4c, 4d, 4k's second run, 4x, 4y's dense runs, 5c, 5e, 5f, 5i,
+5j's ``euclidean`` and ``affine`` and 5k (its views stay at 2,000),
+``--bal-points`` phases 4m, 4q, 4t, 4w,
 5j's ``bal`` runs and 4z's ``BundleAdjuster`` (below 20k points it may
 take the dense core, and the launch check follows its choice),
 ``--sparse-points`` 4u, 4v and 5h, and ``--batched-scenes`` phases 4f-4h
 and 5i's ``shard_scenes`` for a quick run; the views and the chunks stay
 the main paths', so the kernel checks keep their shapes.
 
-The point-sharded phases 5a-5j run after 4z, from one one-rank NCCL group
+The point-sharded phases 5a-5k run after 4z, from one one-rank NCCL group
 and one launch of two rank processes.
 """
 
@@ -402,6 +419,26 @@ SHARDED_AFFINE_E_RTOL = 2e-5
 SHARDED_AFFINE_CALIB_GAP = 1e-3
 SHARDED_CLI_E_RTOLS = {"euclidean": SHARDED_CLI_E_RTOL, "affine": SHARDED_CLI_E_RTOL,
                        "bal": SHARDED_E_RTOL_TWO_RANKS, "bal_sparse": SHARDED_CLI_SPARSE_E_RTOL}
+# Phase 5k, the 2D (points x cameras) BA. In float32 at full width (4c's
+# generator and schedule at 10,000 points x 2,000 views: 9F = 18,000
+# unknowns) the CG keeps its defaults, cg_tol=1e-10 and cg_max_iter=200:
+# the tolerance is below float32's reach, so every solve runs to the cap
+# (JAX's semantics too), and the E gap to the 1D core's Cholesky solve is
+# printed, not held. The float64 algebra at 1,000 points x 2,000 views, 5
+# iterations: cg_tol=1e-12 with a cap no solve reaches, E within 1e-7 of
+# the 1D core's (JAX's bound, tests/test_parallel.py) and ring within 1e-9
+# of all_gather. Its LM damping starts at 1e-2, not 4c's 1e-4: on the
+# H100 at the default a solve took 2,110-8,398 CG iterations (25,115 in
+# the run), and the ring at two gloo ranks 189 s; on the CPU at 9F = 1,800
+# the damping cut the counts sevenfold.
+SHARDED_2D_VIEWS = 2000
+SHARDED_2D_F64_POINTS = 1000
+SHARDED_2D_F64_ITERS = 5
+SHARDED_2D_F64_DAMPING = 1e-2
+SHARDED_2D_F64_CG = dict(cg_tol=1e-12, cg_max_iter=40_000)
+SHARDED_2D_E_RTOL = 1e-7
+SHARDED_2D_RING_E_RTOL = 1e-9
+SHARDED_2D_MODES = ("all_gather", "ring")
 BAL_WINDOW = 20  # 4m, scripts/bench_bal.py: each point seen by 20 consecutive of 100 views
 BAL_OUTLIER_SHARE = 0.02  # ... 2 % of the visible observations moved by 0.5 N(0, 1)
 BAL_OUTLIER_SCALE = 0.5
@@ -1622,12 +1659,13 @@ def nonfused_problem_host(torch, tba, scene, config, model: str = "opencv",
     return x_host, perturbed_cameras(scene, seed=seed), cfg
 
 
-def dense_problem_host(torch, make_synthetic_scene, dense_points: int):
+def dense_problem_host(torch, make_synthetic_scene, dense_points: int, views: int = DENSE_VIEWS,
+                       dtype=None):
     """Phase 4c's problem as host numpy (x, X0, K, R, t0), drawn from 4c's
-    seed."""
+    seed (5k's at ``views`` and ``dtype``, float32 by default)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    scene = make_synthetic_scene(gen, n_images=DENSE_VIEWS, n_slices=dense_points // 20,
-                                 n_angles=20, dtype=torch.float32)
+    scene = make_synthetic_scene(gen, n_images=views, n_slices=dense_points // 20,
+                                 n_angles=20, dtype=dtype or torch.float32)
     return perturbed_start(scene, seed=3, sigma=0.05)
 
 
@@ -1695,6 +1733,205 @@ def sharded_run(torch, fs, sy, fn, mesh, problem, **kw) -> tuple[dict, object]:
     return rec, res
 
 
+@contextlib.contextmanager
+def counted_2d(torch):
+    """A context in which the 2D core's matvecs are counted, a solve at a
+    time (a solve ends at its pmax of delta_xi), and its collectives,
+    looked up by name in ``sharded_ba_2d`` (``all_gather_axis``,
+    ``ppermute_axis``, ``pmax_axis``, and ``_psum`` by axis), are timed on
+    the host between two syncs; it yields the stats: per name (``_psum``
+    per axis, the row block apart) calls, bytes (each call's result: the
+    all-reduced buffer, or the shard received) and ms, and the CG
+    iterations of each solve."""
+    from mvrecon_tpu_torch.parallel import sharded_ba_2d as s2d
+
+    names = ("all_gather_axis", "ppermute_axis", "pmax_axis", "_psum")
+    stats = {"matvecs": 0, "cg_iters_per_solve": [],
+             **{n: {"calls": 0, "bytes": 0, "ms": 0.0} for n in names}}
+    saved = {n: getattr(s2d, n) for n in names + ("_gather_matvec", "_ring_matvec")}
+
+    def timed(name):
+        def call(v, axis_name, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](v, axis_name, *args, **kwargs)
+            torch.cuda.synchronize()
+            key = name
+            if name == "_psum":  # the row block, the rhs, or the ring's dot products
+                key = f"_psum {axis_name} {'block' if v.dim() == 2 else 'vector'}"
+            st = stats.setdefault(key, {"calls": 0, "bytes": 0, "ms": 0.0})
+            st["calls"] += 1
+            st["bytes"] += out.numel() * out.element_size()
+            st["ms"] += (time.perf_counter() - t0) * 1e3
+            if name == "pmax_axis" and v.dim() == 1:  # delta_xi: the solve ends
+                stats["cg_iters_per_solve"].append(
+                    stats["matvecs"] - sum(stats["cg_iters_per_solve"]))
+            return out
+        return call
+
+    def counted(name):
+        def call(*args, **kwargs):
+            stats["matvecs"] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(s2d, name, timed(name))
+    for name in ("_gather_matvec", "_ring_matvec"):
+        setattr(s2d, name, counted(name))
+    try:
+        yield stats
+    finally:
+        for name, fn in saved.items():
+            setattr(s2d, name, fn)
+
+
+def sharded_2d_run(torch, fs, sy, mesh, problem, config, mode: str, cg: dict):
+    """One ``sharded_bundle_adjust_2d`` run of phase 5k on this rank
+    (``sharded_run``, ``counted_2d``): the record with its retries, CG
+    iterations a solve, the cameras-axis traffic (the gather's bytes and
+    ms a call, the ring's point-to-point bytes and ms a matvec, the pmax's
+    bytes a solve) and the row block's all-reduce over the points axis;
+    and the result's (X, K, R, t) as host arrays."""
+    from mvrecon_tpu_torch.parallel.mesh import mesh_shape
+    from mvrecon_tpu_torch.parallel.sharded_ba_2d import sharded_bundle_adjust_2d
+
+    with counted_2d(torch) as c:
+        rec, res = sharded_run(torch, fs, sy, sharded_bundle_adjust_2d, mesh, problem,
+                               config=config, matvec_mode=mode, **cg)
+    solves = c["cg_iters_per_solve"]
+
+    def per_call(name: str) -> dict:
+        st = c.get(name, {"calls": 0, "bytes": 0, "ms": 0.0})
+        n = max(st["calls"], 1)
+        return {"calls": st["calls"], "bytes_per_call": st["bytes"] / n, "ms_per_call": st["ms"] / n}
+
+    rec.update(
+        mesh=mesh_shape(mesh), matvec_mode=mode, views=problem[0].shape[1],
+        points=problem[0].shape[0], dtype=str(res.X.dtype), cg=cg,
+        retries=len(solves), cg_iters_per_solve=solves, matvecs=c["matvecs"],
+        gather=per_call("all_gather_axis"), p2p=per_call("ppermute_axis"),
+        p2p_ms_per_matvec=c["ppermute_axis"]["ms"] / max(c["matvecs"], 1),
+        p2p_bytes_per_matvec=c["ppermute_axis"]["bytes"] / max(c["matvecs"], 1),
+        pmax_bytes_per_solve=c["pmax_axis"]["bytes"] / max(len(solves), 1),
+        ring_dot_allreduce=per_call("_psum cameras vector"),
+        row_block_allreduce={**per_call("_psum points block"),
+                             "points_ranks": mesh_shape(mesh)["points"]})
+    return rec, [a.cpu().numpy() for a in (res.X, res.K, res.R, res.t)]
+
+
+def sharded_2d_problems(torch, make_synthetic_scene, dense_points: int) -> dict:
+    """Phase 5k's two problems as host numpy, each with its config and CG
+    settings: float32 at ``dense_points`` x 2,000 views with 4c's schedule,
+    float64 at 1,000 points with 5 iterations."""
+    from mvrecon_tpu_torch.config import LMConfig
+
+    f64_points = min(SHARDED_2D_F64_POINTS, dense_points)
+    return {
+        "float32": (dense_problem_host(torch, make_synthetic_scene, dense_points,
+                                       SHARDED_2D_VIEWS), dense_config(LMConfig), {}),
+        "float64": (dense_problem_host(torch, make_synthetic_scene, f64_points,
+                                       SHARDED_2D_VIEWS, torch.float64),
+                    dataclasses.replace(dense_config(LMConfig), max_iter=SHARDED_2D_F64_ITERS,
+                                        init_damping=SHARDED_2D_F64_DAMPING),
+                    SHARDED_2D_F64_CG),
+    }
+
+
+def sharded_2d_ranks(torch, fs, sy, problems: dict, n_cameras: int) -> tuple[dict, dict]:
+    """Phase 5k's 2D runs on a {points: 1, cameras: n_cameras} mesh of this
+    process group's ranks: each of ``problems`` (``sharded_2d_problems``)
+    in both matvec modes. Returns the records and the results' arrays, by
+    ``precision/mode``."""
+    from mvrecon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"points": 1, "cameras": n_cameras})
+    recs, arrays = {}, {}
+    for prec, (prob, cfg, cg) in problems.items():
+        for mode in SHARDED_2D_MODES:
+            recs[f"{prec}/{mode}"], arrays[f"{prec}/{mode}"] = sharded_2d_run(
+                torch, fs, sy, mesh, prob, cfg, mode, cg)
+            torch.cuda.empty_cache()
+    return recs, arrays
+
+
+def sharded_2d_one_rank(torch, fs, sy, dense_points: int) -> tuple[dict, dict]:
+    """Phase 5k at one rank (the NCCL group): per problem its start E and
+    noise floor, ``sharded_bundle_adjust`` (1D, Cholesky) as the
+    reference, then ``sharded_2d_ranks`` on a 1 x 1 mesh."""
+    from mvrecon_tpu_torch.geometry.scenes import make_synthetic_scene
+    from mvrecon_tpu_torch.models import bundle_adjustment as tba
+    from mvrecon_tpu_torch.parallel import sharded_ba as sba
+    from mvrecon_tpu_torch.parallel.mesh import make_mesh
+
+    ref = {}
+    problems = sharded_2d_problems(torch, make_synthetic_scene, dense_points)
+    for prec, (prob, cfg, _) in problems.items():
+        x, vis, state, _, _ = tba._prepare_problem(*prob, 1.0, None, "x-up_z-forward", "cuda")
+        start_E = float(tba._state_error(state, x, vis, 1.0))
+        del x, vis, state
+        rec, res = sharded_run(torch, fs, sy, sba.sharded_bundle_adjust, make_mesh({"points": 1}),
+                               prob, config=cfg)
+        rec.update(start_E=start_E, noise_floor=prob[0].shape[0] * prob[0].shape[1] * 2 * NOISE**2,
+                   points=prob[0].shape[0], views=prob[0].shape[1])
+        ref[prec] = rec
+        del res
+        torch.cuda.empty_cache()
+    recs, arrays = sharded_2d_ranks(torch, fs, sy, problems, 1)
+    return {"reference_1d": ref, "runs": recs}, arrays
+
+
+def check_sharded_2d(one: dict, two: list[dict], two_arrays: list[dict]) -> dict:
+    """5k's checks, after its record is printed: every run finite, below
+    its start E, E / floor < 1.5 and no K1 or K2 launch; the two ranks'
+    results equal; in float32 the peak memory a rank at 1 x 2 below the
+    1 x 1 run's; in float64 no solve at its CG cap, E within
+    ``SHARDED_2D_E_RTOL`` of the 1D core's and ring within
+    ``SHARDED_2D_RING_E_RTOL`` of all_gather on each mesh. The float32
+    gaps to the 1D core are printed, not held. Returns the launches of K2
+    and K1 by run."""
+    ref = one["reference_1d"]
+    runs = {f"{key} 1x1": r for key, r in one["runs"].items()}
+    runs.update({f"{key} 1x2 rank {i}": t[key] for i, t in enumerate(two) for key in t})
+    gaps = {name: abs(r["reprojection_error"] - ref[name.split("/")[0]]["reprojection_error"])
+            / ref[name.split("/")[0]]["reprojection_error"] for name, r in runs.items()}
+    for label in ["1x1"] + [f"1x2 rank {i}" for i in range(len(two))]:
+        e_ag, e_ring = (runs[f"float64/{m} {label}"]["reprojection_error"]
+                        for m in SHARDED_2D_MODES)
+        gaps[f"float64 ring vs all_gather {label}"] = abs(e_ring - e_ag) / e_ag
+    print("sharded_2d " + json.dumps({
+        "reference_1d": ref, "runs": runs, "E_rel_gaps": gaps,
+        "limits": {"E_rtol_float64": SHARDED_2D_E_RTOL,
+                   "ring_E_rtol_float64": SHARDED_2D_RING_E_RTOL}}), flush=True)
+    for name, r in runs.items():
+        prec = name.split("/")[0]
+        e, floor = r["reprojection_error"], ref[prec]["noise_floor"]
+        check(r["finite"], f"5k {name}: an output is not finite")
+        check(e < ref[prec]["start_E"], f"5k {name}: E {e} is not below the start")
+        check(e / floor < 1.5, f"5k {name}: E / floor {e / floor:.4f}")
+        check((r["syrk_acc_launches"], r["syrk_lower_launches"]) == (0, 0),
+              f"5k {name}: launched a SYRK kernel")
+        if prec == "float64":
+            check(gaps[name] <= SHARDED_2D_E_RTOL,
+                  f"5k {name}: E {gaps[name]:.3e} from the 1D core's")
+            check(max(r["cg_iters_per_solve"]) < r["cg"]["cg_max_iter"],
+                  f"5k {name}: a CG solve reached its cap")
+    for key in one["runs"]:
+        check(all(np.array_equal(a, b) for a, b in zip(two_arrays[0][key], two_arrays[1][key]))
+              and two[0][key]["reprojection_error"] == two[1][key]["reprojection_error"],
+              f"5k {key}: the ranks returned different results")
+        if key.startswith("float32"):
+            peaks = [t[key]["peak_over_start_gb"] for t in two]
+            check(max(peaks) < one["runs"][key]["peak_over_start_gb"],
+                  f"5k {key}: peak memory a rank at 1 x 2 {peaks} not below 1 x 1's "
+                  f"{one['runs'][key]['peak_over_start_gb']}")
+    for name, gap in gaps.items():
+        if name.startswith("float64 ring"):
+            check(gap <= SHARDED_2D_RING_E_RTOL, f"5k {name}: E {gap:.3e} apart")
+    return {key: {name: r[key] for name, r in list(ref.items()) + list(runs.items())}
+            for key in ("syrk_acc_launches", "syrk_lower_launches")}
+
+
 def per_retry(rec: dict, n_chunks: int) -> None:
     """Add the retries (K1 launches over the chunks a rank) and the
     all-reduce's bytes and ms a retry to a chunked record."""
@@ -1705,7 +1942,7 @@ def per_retry(rec: dict, n_chunks: int) -> None:
 
 
 def sharded_rank(args) -> int:
-    """One of phases 5b-5j's two ranks, a process of its own on the one
+    """One of phases 5b-5k's two ranks, a process of its own on the one
     card (``--sharded-rank``): it joins a two-rank group with gloo named
     for CUDA tensors (NCCL takes one rank a card), draws 4o's and 4c's
     problems in host memory from their seeds, runs
@@ -1715,9 +1952,9 @@ def sharded_rank(args) -> int:
     observations (5e), the large pipeline with the mesh on phase 4's
     scene (5d), the sharded sparse core on 4u's list from the ranks'
     directory (5h), the sharded affine pipeline on 4h's 10k x 100 scene
-    and its half of 4f's batch by ``shard_scenes`` (5i) and the two-rank
-    commands (5j), and writes its records and results to
-    ``--sharded-out``."""
+    and its half of 4f's batch by ``shard_scenes`` (5i), the two-rank
+    commands (5j) and the 2D BA on a {points: 1, cameras: 2} mesh (5k),
+    and writes its records and results to ``--sharded-out``."""
     import torch
     import torch.distributed as dist
 
@@ -1777,10 +2014,18 @@ def sharded_rank(args) -> int:
                                              args.batched_scenes)
         argvs = sharded_cli_argv(args.sharded_out, args.dense_points)
         j_rec = sharded_commands(torch, fs, sy, argvs, world)
+        tight = sparse_tight(torch, mesh, argvs["bal_sparse"])
+        torch.cuda.empty_cache()
+        # 5k: the 2D core on a {points: 1, cameras: 2} mesh
+        k_rec, k_arrays = sharded_2d_ranks(
+            torch, fs, sy, sharded_2d_problems(torch, make_synthetic_scene, args.dense_points),
+            world)
+        out.update({f"2d.{key}.{n}": a for key, arrs in k_arrays.items()
+                    for n, a in zip("XKRt", arrs)})
         out["records"] = np.array(json.dumps({
             "chunked": rec, "dense": d_rec, "covariance": cov_rec, "pipeline": p_rec,
             "large": l_rec, "sparse": h_rec, "affine": i_rec, "commands": j_rec,
-            "sparse_tight": sparse_tight(torch, mesh, argvs["bal_sparse"])}))
+            "sparse_tight": tight, "sharded_2d": k_rec}))
         np.savez(f"{args.sharded_out}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -2250,10 +2495,11 @@ def sparse_tight(torch, mesh, argv: list) -> dict:
 
 def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dict, pipe: dict,
                    dense_pipe: dict, sparse_rec: dict, bal_recs: dict, rank_dir: str) -> dict:
-    """Phases 5a-5f and 5h-5j, point sharding (``parallel/sharded_ba.py``,
+    """Phases 5a-5f and 5h-5k, point sharding (``parallel/sharded_ba.py``,
     ``sharded_covariance.py``, ``sharded_calibration.py``,
     ``pipelines.py``, ``sharded_ba_sparse.py``, ``sharded_affine.py``,
-    ``batched.shard_scenes`` and the commands' ``--shard-points``):
+    ``batched.shard_scenes`` and the commands' ``--shard-points``) and the
+    2D BA (``sharded_ba_2d.py``):
 
     5a. 4o's problem (rendered anew into host memory from its seed)
     through ``sharded_bundle_adjust_chunked`` under a one-rank NCCL group:
@@ -2293,6 +2539,8 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
     ``SHARDED_CLI_E_RTOLS`` of the one-rank run's; rank 1 prints nothing;
     ``bal``'s K1 launches a positive multiple of its chunks on each rank,
     the others none.
+    5k. the 2D BA (``sharded_ba_2d.py``): ``sharded_2d_one_rank`` here,
+    ``sharded_2d_ranks`` on the two ranks, ``check_sharded_2d``.
 
     Returns the launches of K2 and K1 by phase."""
     import torch.distributed as dist
@@ -2393,10 +2641,14 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
                       "launches": (bal_recs["fisheye_sharded"]["syrk_acc_launches"],
                                    bal_recs["fisheye_sharded"]["syrk_lower_launches"]),
                       "wall_s": bal_recs["fisheye_sharded"]["wall_s"]}
+        torch.cuda.empty_cache()
+        # 5k at one rank: the 1D core, then the 2D core on a 1 x 1 mesh
+        one_k, _ = sharded_2d_one_rank(torch, fs, sy, args.dense_points)
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
-    # 5b-5j on two ranks, each a process
+    # 5b-5k on two ranks, each a process
     t0 = time.perf_counter()
     ranks = launch_sharded_ranks(args, rank_dir)
     launcher_wall = time.perf_counter() - t0
@@ -2573,12 +2825,17 @@ def sharded_phases(torch, fs, sy, args, config, opencv_rec: dict, dense_rec: dic
               for r in tight),
           f"5j tight cg_tol: iterations, retries or CG counts {tight} against {tight_one}")
 
+    k_two = [r["records"]["sharded_2d"] for r in ranks]
+    k_launches = check_sharded_2d(one_k, k_two, [
+        {key: [r[f"2d.{key}.{n}"] for n in "XKRt"] for key in k_two[0]} for r in ranks])
+
     def launches_5hij(i: int) -> dict:
         key = ("syrk_acc_launches", "syrk_lower_launches")[i]
         return {"5h": rec_h[key], "5h_per_rank": [r[key] for r in h_recs],
                 "5i": rec_i[key], "5i_per_rank": [r[key] for r in i_recs],
                 "5j_per_rank": {name: [la[i] for la in r["launches_per_rank"]]
-                                for name, r in rec_j.items()}}
+                                for name, r in rec_j.items()},
+                "5k": k_launches[key]}
 
     return {
         "syrk_acc": {"5a": rec_a["syrk_acc_launches"],
@@ -3898,7 +4155,7 @@ def main() -> int:
     check(p_launches == (0, 0), f"dense pipeline launched the SYRK kernels {p_launches}")
 
     # the ranks' directory: 5h's list (from 4u) and 5j's files (from 4t and
-    # 4w) are written there, and the two ranks of 5b-5j write their results
+    # 4w) are written there, and the two ranks of 5b-5k write their results
     rank_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     atexit.register(shutil.rmtree, rank_dir, True)
 
@@ -3934,7 +4191,7 @@ def main() -> int:
     api_rec = reference_api_on_card(torch, fs, sy, args.bal_points)
     torch.cuda.empty_cache()
 
-    # 5a-5j. point sharding: one NCCL rank, then two ranks on the one card
+    # 5a-5k. point sharding and the 2D BA: one NCCL rank, then two ranks on the card
     sharded_launches = sharded_phases(torch, fs, sy, args, config, opencv_rec, dense, pipe,
                                       dense_pipe, sparse_rec, bal_recs, rank_dir)
     torch.cuda.empty_cache()

@@ -44,8 +44,9 @@ is all-reduced where the JAX package ``psum``s it (:func:`_psum`): E, d_F
 and matG of the derivative build, the Schur product and its rhs, the
 point side of the gain ratio, every trial E and the refit's normal
 terms. Every branch of the loop then reads only all-reduced or replicated
-values, so all ranks take it together. The ``solver`` hook is not ported
-yet and raises ``NotImplementedError``.
+values, so all ranks take it together. ``lm_optimize``'s ``solver`` hook
+replaces the damped solve of the retries: the 2D BA
+(``parallel/sharded_ba_2d.py``) plugs its row-sharded CG in there.
 """
 
 from __future__ import annotations
@@ -1282,14 +1283,10 @@ def undistort_points(x: torch.Tensor, f: torch.Tensor, u: torch.Tensor | None = 
                        dim=-1)
 
 
-def _check_ported(config: LMConfig, dist=None, solver=None) -> str:
-    """Raise ``NotImplementedError`` for the solver hook, whose code is not
-    ported yet. An unknown loss or distortion-model name or a column count
-    that does not fit the model raises ``ValueError``. Returns the
-    resolved model name."""
-    if solver is not None:
-        raise NotImplementedError("the solver hook (cameras-sharded CG) is not ported yet: "
-                                  "it comes with sharded_ba_2d, ROADMAP queue 1 item 4")
+def _check_config(config: LMConfig, dist=None) -> str:
+    """Check a run's names: an unknown loss or distortion-model name or a
+    column count that does not fit the model raises ``ValueError``.
+    Returns the resolved model name."""
     model = resolve_distortion_model(dist, config.distortion_model)
     resolve_robust(config.robust)
     return model
@@ -1302,7 +1299,7 @@ def _prepare_distortion(distortion, config: LMConfig, nf: int, lane_dims: int, d
     given; dist is None for a
     pinhole run. Distortion is for one problem: with lane dimensions it
     raises ``ValueError``, as the JAX package's batched paths take none."""
-    model = _check_ported(config, dist=distortion)
+    model = _check_config(config, dist=distortion)
     if distortion is None and config.distortion_rounds <= 0:
         return None, model
     if lane_dims:
@@ -1357,7 +1354,7 @@ class LMOutcome(NamedTuple):
 
 def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=None,
              init_nu=None, dist=None, model: str | None = None,
-             axis_name: str | None = None) -> LMOutcome:
+             axis_name: str | None = None, solver=None) -> LMOutcome:
     """The Levenberg–Marquardt loop over lanes: problems stacked along the
     leading dimensions of ``state0`` (none for one problem), each with its
     own damping, accept decisions and stop, as ``vmap`` runs the JAX
@@ -1392,8 +1389,13 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
     With ``axis_name`` (one problem, no lanes: ``ValueError`` otherwise)
     x, vis and state0.X are this rank's shard of the points; every E and
     camera-side sum is all-reduced, so the host reads give every rank the
-    same answer and all ranks retry and stop together."""
+    same answer and all ranks retry and stop together.
+
+    ``solver`` takes the place of :func:`_damped_solve` in every retry,
+    with its signature: ``solver(derivs, c, free, axis_name) -> (delta_xi,
+    delta_x)``."""
     dt, dev = x.dtype, x.device
+    solve = _damped_solve if solver is None else solver
     lanes = state0.f.shape[:-1]
     if axis_name is not None and lanes:
         raise ValueError("the sharded core takes one problem, not lanes")
@@ -1420,7 +1422,7 @@ def lm_lanes(x, state0: BAState, vis, free, f0: float, config: LMConfig, init_c=
         run_next, iterating = torch.zeros_like(run), False  # no retry: every lane stops
         for _ in range(config.max_inner_retries):
             retry = ~accepted
-            delta_xi, delta_x = _damped_solve(derivs, c, free, axis_name)
+            delta_xi, delta_x = solve(derivs, c, free, axis_name)
             cand = _apply_update(state, delta_xi, delta_x)
             e_cand = _state_error(cand, x, vis_it, f0, dist, model, axis_name)
             acc_t = e_cand <= e_base
@@ -1467,13 +1469,17 @@ def lm_optimize(x, state0: BAState, vis, free, f0: float, config: LMConfig, axis
     stops. The reference schedule divides c by ``config.divisor`` after
     each iteration; stop when |E' - E| <= delta_tol or after max_iter.
     ``init_c``/``init_nu`` resume a previous segment's damping.
+    ``solver`` replaces the damped solve of every retry
+    (``solver(derivs, c, free, axis_name) -> (delta_xi, delta_x)``, the
+    JAX package's hook; :func:`lm_lanes`); ``lm_step`` keeps
+    :func:`_damped_solve`.
 
     Returns (state, error, c, nu, n_iter, log): with ``config.record_log``
     the log holds "points", "basis", "pos" and "reprojection_error" stacked
     over max_iter + 1 rows (zero past the last iteration), else None."""
-    model = _check_ported(config, dist, solver)
+    model = _check_config(config, dist)
     out = lm_lanes(x, state0, vis, free, f0, config, init_c=init_c, init_nu=init_nu, dist=dist,
-                   model=model, axis_name=axis_name)
+                   model=model, axis_name=axis_name, solver=solver)
     return out.state, out.error, out.c, out.nu, out.n_iter, out.log
 
 

@@ -65,7 +65,7 @@ from .bundle_adjustment import (
     BAResult,
     BAState,
     _apply_update,
-    _check_ported,
+    _check_config,
     _chol_solve,
     _chunk_backsub,
     _chunk_blocks,
@@ -229,7 +229,7 @@ def lm_optimize_chunked(
     Returns (state, error, c, nu, n_iter, total_solver_retries, log): the
     log is ``{"reprojection_error": (max_iter + 1,)}`` with
     ``config.record_log`` (zero past the last iteration), else None."""
-    model = _check_ported(config, dist)
+    model = _check_config(config, dist)
     fused = axis_name is None and (dist is None or model == "radial")
     npts = x.shape[0]
     dt = x.dtype

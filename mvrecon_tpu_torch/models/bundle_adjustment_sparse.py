@@ -93,7 +93,7 @@ from .bundle_adjustment import (
     BAState,
     _apply_distortion_chain,
     _apply_update,
-    _check_ported,
+    _check_config,
     _distorted_residual,
     _lm_damping,
     _psum,
@@ -690,7 +690,7 @@ def lm_optimize_sparse(
     the camera-side sums are all-reduced over the axis (see the module
     docstring); an axis name that no sharded call binds raises
     ``ValueError``."""
-    model = _check_ported(config, dist)
+    model = _check_config(config, dist)
     if factor_mode not in ("stored", "recompute"):
         raise ValueError(f"unknown factor_mode: {factor_mode!r}")
     remat = factor_mode == "recompute"

@@ -3,8 +3,9 @@ scene-batched pipelines on one device and their scene sharding
 (``shard_scenes``), the meshes of ranks, point-sharded bundle adjustment
 (the dense, chunked and sparse cores over the ``points`` axis), the
 point-sharded covariance, perspective and affine calibrations, and the
-point-sharded perspective and affine pipelines. Only the 2D (points x
-cameras) BA, ``sharded_ba_2d``, is not ported yet."""
+point-sharded perspective and affine pipelines, and the 2D (points x
+cameras) BA, ``sharded_ba_2d``, which is imported from its module (the
+JAX package does not re-export it either)."""
 
 from .mesh import hybrid_scene_point_mesh, make_mesh, scene_point_mesh  # noqa: F401
 from .batched import batched_affine_reconstruction, batched_euclidean_reconstruction  # noqa: F401

@@ -8,18 +8,24 @@ names and shape rules:
 - ``scenes``: data parallelism over independent reconstructions, no
   collective;
 - ``points``: the P dimension of one scene split over the ranks; the
-  camera-side sums of the BA cores are all-reduced over it.
+  camera-side sums of the BA cores are all-reduced over it;
+- ``cameras``: the rows of the reduced camera system split over the ranks
+  (``parallel/sharded_ba_2d.py``).
 
 JAX's ``psum(v, axis_name)`` inside ``shard_map`` finds the axis from the
 mesh that ``shard_map`` runs over. Here the sharded call binds its mesh
 (``bind_axes``) while it runs, and the cores' ``_psum`` resolves the name
-to the process group of that mesh dimension (``axis_group``).
+to the process group of that mesh dimension (``axis_group``); JAX's
+``axis_index(name)`` and ``psum(1, name)`` are ``axis_index`` and
+``axis_size``, and ``axis_ranks`` lists the axis's global ranks in its
+coordinate order (the peers of a ``ppermute``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -80,26 +86,61 @@ def mesh_shape(mesh: DeviceMesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+class _Axis(NamedTuple):
+    """A bound mesh axis, seen from this rank: the process group of the
+    mesh dimension, this rank's coordinate on it and the dimension's global
+    ranks in coordinate order."""
+
+    group: object
+    index: int
+    ranks: tuple[int, ...]
+
+
 @contextlib.contextmanager
 def bind_axes(mesh: DeviceMesh):
     """Bind the axis names of ``mesh`` to this rank's process groups of its
-    dimensions while the block runs: what ``shard_map`` gives JAX's
-    ``psum``."""
-    if mesh.get_coordinate() is None:
+    dimensions, its coordinates and the dimensions' ranks while the block
+    runs: what ``shard_map`` gives JAX's ``psum`` and ``axis_index``."""
+    coord = mesh.get_coordinate()
+    if coord is None:
         raise ValueError("this rank is not in the mesh")
-    groups = {name: mesh.get_group(name) for name in mesh.mesh_dim_names}
-    token = _BOUND.set({**_BOUND.get(), **groups})
+    axes = {}
+    for k, name in enumerate(mesh.mesh_dim_names):
+        line = mesh.mesh[tuple(slice(None) if j == k else c for j, c in enumerate(coord))]
+        axes[name] = _Axis(mesh.get_group(name), coord[k], tuple(line.tolist()))
+    token = _BOUND.set({**_BOUND.get(), **axes})
     try:
         yield
     finally:
         _BOUND.reset(token)
 
 
-def axis_group(axis_name: str):
-    """The process group bound to ``axis_name`` (``bind_axes``); a name no
-    running sharded call binds raises ``ValueError``."""
-    group = _BOUND.get().get(axis_name)
-    if group is None:
+def _bound(axis_name: str) -> _Axis:
+    axis = _BOUND.get().get(axis_name)
+    if axis is None:
         raise ValueError(f"axis name {axis_name!r} is not bound: call the core inside a "
                          "sharded function or under parallel.mesh.bind_axes(mesh)")
-    return group
+    return axis
+
+
+def axis_group(axis_name: str):
+    """The process group bound to ``axis_name`` (``bind_axes``); a name no
+    running sharded call binds raises ``ValueError``, as do ``axis_index``,
+    ``axis_size`` and ``axis_ranks``."""
+    return _bound(axis_name).group
+
+
+def axis_index(axis_name: str) -> int:
+    """This rank's coordinate on the bound axis (JAX's ``axis_index``)."""
+    return _bound(axis_name).index
+
+
+def axis_size(axis_name: str) -> int:
+    """The number of ranks on the bound axis (JAX's ``psum(1, name)``)."""
+    return len(_bound(axis_name).ranks)
+
+
+def axis_ranks(axis_name: str) -> tuple[int, ...]:
+    """The global ranks of the bound axis through this rank, in coordinate
+    order: entry i is the rank at coordinate i."""
+    return _bound(axis_name).ranks

@@ -17,7 +17,7 @@ The cores are the one-device ones with ``axis_name=POINTS_AXIS``: their
 the name (``parallel.mesh.bind_axes``). Every rank calls these functions
 with the same global host arrays, moves only its own block to its device,
 and gets back the global result: X is gathered by an all-reduce of a
-zero-filled (P_pad, 3) buffer, so the port's collectives are
+zero-filled (P_pad, 3) buffer, so this module's collectives are
 ``all_reduce`` and ``broadcast`` only. ``bundle_adjust_block`` is the
 dense core from a block that is already on the rank's device, and returns
 the block: the sharded pipeline (``parallel/pipelines.py``) feeds it the
@@ -249,13 +249,16 @@ def bundle_adjust_block(
     axis: str = "x-right_z-forward",
     config: LMConfig = LMConfig(),
     distortion=None,
+    solver=None,
 ) -> BAResult:
     """:func:`sharded_bundle_adjust` from this rank's block, already on its
     device: x_l (Pl, F, 2), X_l (Pl, 3) and vis_l (Pl, F), a (Pl, 1)
     column or None (every observation seen), with the cameras replicated.
     The X of the result is the block's, in the caller's frame; nothing is
     gathered. A pipeline feeds it the calibrated block this way, so the
-    point cloud is never gathered between its stages."""
+    point cloud is never gathered between its stages. ``solver`` goes to
+    every LM segment (``lm_optimize``'s hook; the 2D BA's CG,
+    ``sharded_ba_2d.py``)."""
     if vis_l is None:
         vis_l = x_l.new_ones((x_l.shape[0], 1))
     x_l, st0, free, info = _block_start(x_l, X_l, vis_l, init_K, init_R, init_t, f0, axis)
@@ -277,9 +280,10 @@ def bundle_adjust_block(
             seg_cfg = dataclasses.replace(config, record_log=False)
             st0, _, c_seg, _, n_seg, _ = lm_optimize(x_l, st0, vis_l, free, f0, seg_cfg,
                                                      axis_name=POINTS_AXIS, init_c=c_seg,
-                                                     dist=dist)
+                                                     solver=solver, dist=dist)
             n_total += n_seg
         final, e, _, _, n_iter, _ = lm_optimize(x_l, st0, vis_l, free, f0, config,
-                                                axis_name=POINTS_AXIS, init_c=c_seg, dist=dist)
+                                                axis_name=POINTS_AXIS, init_c=c_seg,
+                                                solver=solver, dist=dist)
     return _block_result(info, final, f0, error=e, n_iter=n_iter + n_total, log=None,
                          distortion=dist if model_dist else None)

@@ -17,11 +17,20 @@ JAX's ``local_device_count`` (devices per process) becomes ranks per host.
 - ``distribute_array`` / ``replicate_array``: each rank moves only its own
   block of a host array to its device;
 - ``gather_array``: the global array back on every rank, by an all-reduce
-  of a zero-filled buffer (the port's collectives are ``all_reduce`` and
-  ``broadcast`` only, the two that gloo carries for CUDA tensors);
+  of a zero-filled buffer;
 - ``broadcast_array``: one rank's host array on every rank's host, through
   a device buffer of one rank's share, so a command draws its synthetic
-  scene on one card only.
+  scene on one card only;
+- the collectives of a bound mesh axis (``parallel.mesh.bind_axes``) that
+  the 2D BA adds: ``all_gather_axis`` (JAX's tiled ``all_gather``, a
+  zero-filled all-reduce), ``pmax_axis`` (an all-reduce with MAX) and
+  ``ppermute_axis`` (a ring shift by point-to-point sends).
+
+So the collectives are ``all_reduce`` (sum, and max in ``pmax_axis``),
+``broadcast`` and, in ``ppermute_axis`` alone, ``batch_isend_irecv``. Gloo
+carries the first two for CUDA tensors but no point-to-point send of one:
+under gloo ``ppermute_axis`` stages a CUDA tensor through the host, under
+NCCL it goes device to device.
 
 Launch N ranks with ``torchrun --nproc-per-node N script.py`` (or
 ``python -m torch.distributed.run``) and call ``initialize`` in each with
@@ -261,3 +270,52 @@ def broadcast_array(arr, shape, dtype: torch.dtype, device=None, src: int = 0) -
         if not is_src:
             flat[lo:lo + n].copy_(buf[:n])
     return flat.view(shape)
+
+
+def all_gather_axis(v: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """JAX's ``all_gather(v, axis_name, tiled=True)`` on a bound axis: the
+    blocks of every rank of the axis stacked along dimension 0 in the
+    axis's coordinate order. One all-reduce of a zero-filled buffer, so
+    each block lands exactly (x + 0 = x)."""
+    from ..parallel.mesh import axis_group, axis_index, axis_size
+
+    n = v.shape[0]
+    buf = v.new_zeros((axis_size(axis_name) * n,) + v.shape[1:])
+    buf.narrow(0, axis_index(axis_name) * n, n).copy_(v)
+    dist.all_reduce(buf, group=axis_group(axis_name))
+    return buf
+
+
+def pmax_axis(v: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """JAX's ``pmax(v, axis_name)`` on a bound axis: the elementwise
+    maximum over the axis's ranks, in a new tensor."""
+    from ..parallel.mesh import axis_group
+
+    out = v.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=axis_group(axis_name))
+    return out
+
+
+def ppermute_axis(v: torch.Tensor, axis_name: str, shift: int = 1) -> torch.Tensor:
+    """JAX's ``ppermute`` over a bound axis with the permutation
+    i -> i + shift (mod n): the rank at coordinate i sends ``v`` to the one
+    at i + shift and returns what the one at i - shift sent, by one
+    ``batch_isend_irecv`` on the axis's group with the peers' global
+    ranks. Under gloo a CUDA tensor goes through a host copy (gloo sends
+    no CUDA tensor); under NCCL it goes device to device. A one-rank axis
+    returns a copy."""
+    from ..parallel.mesh import axis_group, axis_index, axis_ranks
+
+    ranks = axis_ranks(axis_name)
+    n, i = len(ranks), axis_index(axis_name)
+    if n == 1:
+        return v.clone()
+    group = axis_group(axis_name)
+    staged = v.is_cuda and dist.get_backend(group) == "gloo"
+    send = v.cpu() if staged else v.contiguous()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, ranks[(i + shift) % n], group),
+           dist.P2POp(dist.irecv, recv, ranks[(i - shift) % n], group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return recv.to(v.device) if staged else recv

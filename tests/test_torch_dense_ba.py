@@ -227,11 +227,13 @@ def test_bundle_adjust_float32_matches_jax(damping):
 SECOND_DISTORTION = (("fisheye", 4), ("full_opencv", 8), ("fov", 1), ("thin_prism", 8))
 
 
-def test_unported_options_raise():
-    """The solver hook is not ported and raises. The distortion families of
-    the second slice, which raised here before, now run as JAX's
-    ``bundle_adjust`` does, refit from their default start and given
-    (E rtol 1e-8, the same iterations)."""
+def test_solver_hook_and_second_distortion_families():
+    """``lm_optimize(solver=_damped_solve)`` gives the run without a solver
+    bit for bit, and a wrapping solver is called once a retry (the 2D BA
+    plugs its CG in there). The distortion families of the second slice,
+    which raised here before, run as JAX's ``bundle_adjust`` does, refit
+    from their default start and given (E rtol 1e-8, the same
+    iterations)."""
     prob = _problem(6, 5)
     for model, ncols in SECOND_DISTORTION:
         given = np.full((6, ncols), 0.5 if model == "fov" else 0.01)
@@ -247,8 +249,22 @@ def test_unported_options_raise():
     fields, x, vis, free = _normalized(6, 5)
     state = ba_state_from_numpy(*fields, "cpu", torch.float64)
     args = [torch.from_numpy(a) for a in (x,)] + [state] + [torch.from_numpy(a) for a in (vis, free)]
-    with pytest.raises(NotImplementedError):
-        tba.lm_optimize(*args, 1.0, LMConfig(), solver=tba._damped_solve)
+    cfg = LMConfig(scale_factor=2.0, max_iter=4)
+    plain = tba.lm_optimize(*args, 1.0, cfg)
+    hooked = tba.lm_optimize(*args, 1.0, cfg, solver=tba._damped_solve)
+    for u, v in zip(list(plain[0]) + list(plain[1:4]), list(hooked[0]) + list(hooked[1:4])):
+        assert torch.equal(u, v)
+    assert hooked[4] == plain[4] > 0
+    calls = []
+
+    def wrapping(derivs, c, free, axis_name):
+        calls.append(axis_name)
+        return tba._damped_solve(derivs, c, free, axis_name)
+
+    wrapped = tba.lm_optimize(*args, 1.0, cfg, solver=wrapping)
+    assert torch.equal(wrapped[1], plain[1]) and wrapped[4] == plain[4]
+    retries = tba.lm_lanes(*args, 1.0, cfg).retries
+    assert calls == [None] * retries and retries >= plain[4]
 
 
 # ------------------------------------------------- autograd as the oracle

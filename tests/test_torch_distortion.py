@@ -161,7 +161,7 @@ def test_resolve_distortion_model_spellings_and_errors():
     for model, ncols in SECOND_FAMILIES:
         assert tba.resolve_distortion_model(np.zeros((NF, ncols)), model) == model
         cfg = LMConfig(distortion_model=model, distortion_rounds=1)
-        assert tba._check_ported(cfg, dist=np.zeros((NF, ncols))) == model
+        assert tba._check_config(cfg, dist=np.zeros((NF, ncols))) == model
     # a model named in the config alone changes nothing for a pinhole run
     res = tba.bundle_adjust(*prob, axis=AXIS, device="cpu",
                             config=LMConfig(distortion_model="fisheye", max_iter=1))

@@ -110,6 +110,7 @@ def test_sharded_entry_points_default_to_the_card(monkeypatch):
         sharded_euclidean_reconstruction,
         sharded_lm_step,
     )
+    from mvrecon_tpu_torch.parallel.sharded_ba_2d import sharded_bundle_adjust_2d
     from mvrecon_tpu_torch.parallel.sharded_calibration import (
         sharded_perspective_self_calibration,
     )
@@ -124,7 +125,9 @@ def test_sharded_entry_points_default_to_the_card(monkeypatch):
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
     try:
         mesh = make_mesh({"points": 1})
+        mesh_2d = make_mesh({"points": 1, "cameras": 1})
         calls = [lambda: sharded_bundle_adjust(mesh, x, *start),
+                 lambda: sharded_bundle_adjust_2d(mesh_2d, x, *start),
                  lambda: sharded_bundle_adjust_chunked(mesh, x, *start),
                  lambda: sharded_lm_step(mesh, x, state, np.ones((20, 4)), np.ones(36), 1e-3),
                  lambda: sharded_ba_covariance(mesh, x, *start),

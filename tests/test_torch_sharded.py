@@ -8,13 +8,15 @@ functions and the port's unsharded ones.
   ``hybrid_scene_point_mesh`` against JAX's on its 8 virtual CPU devices
   for 1-8 ranks (the port's meshes over a fake process group of 8), and
   ``shard_scenes``'s block on that group; an unbound axis name, lanes
-  under an axis name, the solver hook of a later slice and an indivisible
-  P under the affine calibration raise.
+  under an axis name, the 2D solver without a bound ``cameras`` axis, an
+  indivisible P under the affine calibration, and an indivisible F or an
+  unknown matvec mode under the 2D BA raise.
 - Spawned ranks: one group of 2 gloo ranks runs every case of ``CASES``
-  once (this file is the rank program, under ``__main__``), and one
-  group of 3 ranks the cases of ``CASES3``, whose last rank holds 60
-  padding-like rows of its 67 (P = 199 pads to 201, and 58 more points
-  are seen by no view). Each rank writes its results to an npz; each case
+  once (this file is the rank program, under ``__main__``), one group of
+  3 ranks the cases of ``CASES3``, whose last rank holds 60 padding-like
+  rows of its 67 (P = 199 pads to 201, and 58 more points are seen by no
+  view), and one group of 4 ranks the 2D BA on a 2 x 2 mesh
+  (``CASES4``). Each rank writes its results to an npz; each case
   is then its own test: against JAX's sharded function on a points mesh
   of as many devices (E rtol 1e-8, X atol 1e-7, K, R, t and the
   distortion atol 1e-8: JAX's bounds in ``tests/test_parallel.py``), the
@@ -22,7 +24,18 @@ functions and the port's unsharded ones.
   bounds; and every rank's result equal to rank 0's. The ranks also
   record that the chunked core took the non-fused build (K1's
   accumulation, one call per chunk and retry) under the axis name, and
-  that no collective other than ``all_reduce`` and ``broadcast`` ran.
+  each case's collectives: ``all_reduce`` (sum) and ``broadcast`` only,
+  but for the 2D cases.
+- The 2D (points x cameras) BA, ``sharded_bundle_adjust_2d``, on 1 x 2
+  (both matvec modes, and ring with two Huber-weighted radial refits),
+  2 x 1, 1 x 3 (ring) and 2 x 2 (both modes) meshes: against JAX's on a
+  mesh of the same shape, computed once in a module fixture (E rtol
+  1e-8, X atol 1e-6, K, R, t atol 1e-7; the refit case E rtol 1e-6,
+  aligned RMSE < 1e-5, the distortion atol 5e-3), and against the port's
+  1D ``sharded_bundle_adjust`` on the same ranks at JAX's 2D-against-1D
+  bounds; sum and max all-reduces, and ``batch_isend_irecv`` in ring mode
+  alone. Every group also round-trips ``all_gather_axis`` and
+  ``ppermute_axis`` on a ``cameras`` mesh of its ranks.
 - The same two groups run the sharded calibration (dual, its chunked
   Khatri–Rao branch with ``_KR_CHUNK_BYTES`` lowered inside the ranks,
   primary on 3 ranks), the sharded perspective pipeline (plain, masked,
@@ -77,6 +90,13 @@ CHUNK = 25  # 5 chunks on each of 2 ranks, 3 on each of 3
 SPARSE_CFG = dict(scale_factor=4.0, delta_tol=0.0, max_iter=3, accept_divisor=1.0,
                   init_damping=3e-3, damping="nielsen")
 SPARSE_KW = dict(cg_tol=1e-12, cg_max_iter=500)
+# the 2D cases: JAX's schedule in tests/test_parallel.py with the damping
+# started at 1e-2 and 4 iterations, so that CG at cg_tol=1e-12 converges
+# in 101-250 iterations a solve (107-371 in the refit case; at the default
+# 1e-4 it takes 451-1244 on this tube, past JAX's cap of 200, and the
+# result then rests on rounding); the cap is never reached
+TWO_D_CFG = dict(scale_factor=2.0, delta_tol=1e-8, max_iter=4, init_damping=1e-2)
+TWO_D_KW = dict(cg_tol=1e-12, cg_max_iter=2000)
 
 # name: (core, data, mesh, LMConfig fields); data "radial" and "opencv" are
 # the scene rendered through that distortion, "masked" a random 85 % of
@@ -139,6 +159,17 @@ CASES = {
     "affine_symmetric": ("affine", "tube12", "points", dict(model="symmetric")),
     "affine_paraperspective": ("affine", "tube12", "points", dict(model="paraperspective")),
     "affine_pipeline": ("affine_pipeline", "tube12", "points", dict(max_iter=12)),
+    # the 2D BA on "PxC" meshes (points x cameras), LMConfig fields beside
+    # its keywords ("kw"); P = 201 pads to 202 on 2 points ranks
+    "2d_gather": ("2d", "plain", "1x2",
+                  dict(TWO_D_CFG, kw=dict(TWO_D_KW, matvec_mode="all_gather"))),
+    "2d_ring": ("2d", "plain", "1x2", dict(TWO_D_CFG, kw=dict(TWO_D_KW, matvec_mode="ring"))),
+    "2d_points": ("2d", "plain", "2x1",
+                  dict(TWO_D_CFG, kw=dict(TWO_D_KW, matvec_mode="all_gather"))),
+    "2d_ring_refit_huber": ("2d", "radial", "1x2",
+                            dict(TWO_D_CFG, max_iter=2, delta_tol=1e-10, distortion_rounds=2,
+                                 robust="huber", huber_delta=0.01,
+                                 kw=dict(TWO_D_KW, matvec_mode="ring"))),
 }
 CASES3 = {
     "dense3": ("dense", "padded", "points",
@@ -152,8 +183,15 @@ CASES3 = {
     # P = 199: the last rank holds 65 points and 2 padded ones, and only 7
     # of its points are seen
     "sparse3": ("sparse", "padded", "points", dict(SPARSE_CFG)),
+    "2d_ring3": ("2d", "plain", "1x3", dict(TWO_D_CFG, kw=dict(TWO_D_KW, matvec_mode="ring"))),
 }
-GROUPS = {2: CASES, 3: CASES3}
+# 4 ranks: the one mesh where both axes of the 2D BA carry traffic
+CASES4 = {
+    "2d_gather4": ("2d", "plain", "2x2",
+                   dict(TWO_D_CFG, kw=dict(TWO_D_KW, matvec_mode="all_gather"))),
+    "2d_ring4": ("2d", "plain", "2x2", dict(TWO_D_CFG, kw=dict(TWO_D_KW, matvec_mode="ring"))),
+}
+GROUPS = {2: CASES, 3: CASES3, 4: CASES4}
 BA_CORES = ("dense", "chunked", "lm_step")
 NEW_CORES = ("sparse", "affine", "affine_pipeline")
 KR_CHUNK = 128  # "kr": 256 points a rank, so two chunks a rank, four unsharded
@@ -283,6 +321,34 @@ def run_jax(case: str, world: int) -> dict:
     if core == "dense":
         return result_arrays(jsba.sharded_bundle_adjust(mesh, *args, **kw))
     return result_arrays(jsba.sharded_bundle_adjust_chunked(mesh, *args, chunk_size=CHUNK, **kw))
+
+
+def two_d_inputs(case: str, world: int):
+    """A 2D case's numpy inputs (``problem``), LMConfig fields and the
+    core's keywords."""
+    fields = dict(GROUPS[world][case][3])
+    kw = fields.pop("kw")
+    return problem(case, world), fields, kw
+
+
+def run_port_2d(case: str, world: int, mesh, points_mesh) -> dict:
+    """A 2D case through the port's ``sharded_bundle_adjust_2d`` on
+    ``mesh``, and through the 1D ``sharded_bundle_adjust`` on
+    ``points_mesh`` (keys "1d_*")."""
+    from mvrecon_tpu_torch.parallel import sharded_ba as sba
+    from mvrecon_tpu_torch.parallel.sharded_ba_2d import sharded_bundle_adjust_2d
+
+    (x, X0, K, R, t0, vis, _), fields, kw = two_d_inputs(case, world)
+    common = dict(visibility=vis, axis=AXIS, config=LMConfig(**fields), device="cpu")
+    out = result_arrays(sharded_bundle_adjust_2d(mesh, x, X0, K, R, t0, **common, **kw))
+    ref = result_arrays(sba.sharded_bundle_adjust(points_mesh, x, X0, K, R, t0, **common))
+    return {**out, **{f"1d_{k}": v for k, v in ref.items()}}
+
+
+def mesh_axes(kind: str) -> dict:
+    """The axis sizes of a 2D case's mesh kind "PxC"."""
+    points, cameras = map(int, kind.split("x"))
+    return {"points": points, "cameras": cameras}
 
 
 def tube(case: str, world: int):
@@ -706,7 +772,7 @@ def _cases(*cores) -> list[tuple[int, str]]:
 
 ALL = _cases(*BA_CORES)
 CALIBS, PIPELINES, COVS = _cases("calib"), _cases("pipeline"), _cases("covariance")
-ARRAYS = _cases(*BA_CORES, "calib", "pipeline", "large", "covariance", *NEW_CORES)
+ARRAYS = _cases(*BA_CORES, "calib", "pipeline", "large", "covariance", *NEW_CORES, "2d")
 SPARSES, AFFINES = _cases("sparse"), _cases("affine")
 CLIS = [c for _, c in _cases("cli")]
 
@@ -773,12 +839,16 @@ def test_shard_feeding_round_trips(ranks, world):
         assert bool(out["meta.round_trip"])
 
 
-@pytest.mark.parametrize("world", sorted(GROUPS))
+@pytest.mark.parametrize("world", [2, 3])
 def test_only_all_reduce_and_broadcast(ranks, world):
     """No collective other than ``all_reduce`` (sum) and ``broadcast`` was
-    called while the sharded functions ran; all_reduce was."""
+    called while a case of the 1D sharded functions ran (each case is
+    checked on its own; the 2D cases in ``test_2d_collectives``);
+    all_reduce was."""
     for out in ranks[world]:
-        assert list(out["meta.other_collectives"]) == []
+        for case, spec in GROUPS[world].items():
+            if spec[0] != "2d":
+                assert set(out[f"{case}.collectives"]) <= {"all_reduce(sum)"}, case
         assert int(out["meta.all_reduce_calls"]) > 0
 
 
@@ -949,6 +1019,95 @@ def test_affine_pipeline_matches_unsharded(ranks):
     signs; the same status 0, iterations, E rtol 1e-7."""
     _assert_pipeline_close(_case(ranks[2][0], "affine_pipeline"),
                            run_port_new("affine_pipeline", 2), "affine_pipeline")
+
+
+TWO_DS = _cases("2d")
+
+
+@pytest.fixture(scope="module")
+def jax_2d():
+    """JAX's ``sharded_bundle_adjust_2d`` of every 2D case, once, on a mesh
+    of the case's shape over the virtual CPU devices."""
+    import jax
+    import jax.numpy as jnp
+
+    from mvrecon_tpu.config import LMConfig as JLMConfig
+    from mvrecon_tpu.parallel.mesh import make_mesh
+    from mvrecon_tpu.parallel.sharded_ba_2d import sharded_bundle_adjust_2d
+
+    out = {}
+    for world, case in TWO_DS:
+        (x, X0, K, R, t0, vis, _), fields, kw = two_d_inputs(case, world)
+        axes = mesh_axes(GROUPS[world][case][2])
+        mesh = make_mesh(axes, devices=jax.devices()[:axes["points"] * axes["cameras"]])
+        out[case] = result_arrays(sharded_bundle_adjust_2d(
+            mesh, *(jnp.asarray(a) for a in (x, X0, K, R, t0)), f0=1.0,
+            visibility=None if vis is None else jnp.asarray(vis), axis=AXIS,
+            config=JLMConfig(**fields), **kw))
+    return out
+
+
+def _assert_2d_close(got: dict, want: dict, case: str, bounds: dict):
+    """The same iterations; E within ``bounds["E"]``; then either the
+    aligned RMSE of X and the distortion (a refit case: JAX's bounds in
+    ``tests/test_distortion.py``) or X, K, R and t, each to its bound."""
+    from mvrecon_tpu_torch.ops.procrustes import aligned_rmse
+
+    assert int(got["n_iter"]) == int(want["n_iter"]), case
+    np.testing.assert_allclose(got["error"], want["error"], rtol=bounds["E"], err_msg=case)
+    if "distortion" in want:
+        assert float(aligned_rmse(torch.tensor(got["X"]), torch.tensor(want["X"]))) < 1e-5
+        np.testing.assert_allclose(got["distortion"], want["distortion"], atol=5e-3,
+                                   err_msg=f"{case} distortion")
+        return
+    for key in ("X", "K", "R", "t"):
+        if key in bounds:
+            np.testing.assert_allclose(got[key], want[key], atol=bounds[key],
+                                       err_msg=f"{case} {key}")
+
+
+@pytest.mark.parametrize("world,case", TWO_DS, ids=[c for _, c in TWO_DS])
+def test_2d_matches_jax(ranks, jax_2d, world, case):
+    """Against JAX's ``sharded_bundle_adjust_2d`` on a mesh of the same
+    shape, float64, cg_tol=1e-12: E rtol 1e-8, X atol 1e-6, K, R, t atol
+    1e-7; a refit case E rtol 1e-6, aligned RMSE < 1e-5, the distortion
+    atol 5e-3."""
+    bounds = (dict(E=1e-6) if "distortion" in jax_2d[case]
+              else dict(E=1e-8, X=1e-6, K=1e-7, R=1e-7, t=1e-7))
+    _assert_2d_close(_case(ranks[world][0], case), jax_2d[case], case, bounds)
+
+
+@pytest.mark.parametrize("world,case", TWO_DS, ids=[c for _, c in TWO_DS])
+def test_2d_matches_1d(ranks, world, case):
+    """Against the port's 1D ``sharded_bundle_adjust`` (Cholesky) on a
+    points mesh of the same ranks, at JAX's 2D-against-1D bounds
+    (``tests/test_parallel.py``: E rtol 1e-7, X atol 1e-5, K and R atol
+    1e-6; the refit case ``tests/test_distortion.py``'s)."""
+    out = _case(ranks[world][0], case)
+    ref = {k[3:]: v for k, v in out.items() if k.startswith("1d_")}
+    bounds = dict(E=1e-6) if "distortion" in ref else dict(E=1e-7, X=1e-5, K=1e-6, R=1e-6)
+    _assert_2d_close(out, ref, case, bounds)
+
+
+@pytest.mark.parametrize("world,case", TWO_DS, ids=[c for _, c in TWO_DS])
+def test_2d_collectives(ranks, world, case):
+    """A 2D case calls ``all_reduce`` with sum and with max (the pmax) on
+    every rank, ``batch_isend_irecv`` in ring mode alone (the ring is
+    carried by point-to-point sends, never by a gather), and nothing
+    else."""
+    ring = GROUPS[world][case][3]["kw"]["matvec_mode"] == "ring"
+    want = {"all_reduce(sum)", "all_reduce(max)"} | ({"batch_isend_irecv"} if ring else set())
+    for out in ranks[world]:
+        assert set(out[f"{case}.collectives"]) == want, case
+
+
+@pytest.mark.parametrize("world", sorted(GROUPS))
+def test_axis_collectives_round_trip(ranks, world):
+    """On a ``cameras`` mesh of every rank: ``all_gather_axis`` stacks each
+    rank's block in coordinate order, ``ppermute_axis`` by +1 brings the
+    previous rank's block, and by -1 after +1 gives the block back."""
+    for out in ranks[world]:
+        assert bool(out["meta.axis_round_trip"])
 
 
 @pytest.mark.parametrize("world", sorted(GROUPS))
@@ -1248,12 +1407,13 @@ def test_process_meshes_match_jax(fake_world):
 
 def test_axis_name_errors():
     """An axis name no sharded call binds raises ``ValueError``, in the
-    dense and the sparse core, as do lanes under an axis name; the solver
-    hook raises ``NotImplementedError`` naming item 4 (the 2D BA). Without
-    a launcher ``affine`` and ``bal --sparse`` with ``--shard-points 2``
-    fail and name torchrun, as the other sharded commands do."""
+    dense and the sparse core, as do lanes under an axis name and the 2D
+    BA's solver hook without a bound ``cameras`` axis. Without a launcher
+    ``affine`` and ``bal --sparse`` with ``--shard-points 2`` fail and name
+    torchrun, as the other sharded commands do."""
     from mvrecon_tpu_torch.__main__ import main
     from mvrecon_tpu_torch.models import bundle_adjustment_sparse as tbs
+    from mvrecon_tpu_torch.parallel.sharded_ba_2d import _row_sharded_cg_solver
 
     x, X0, K, R, t0, _, _ = problem("dense", 2)
     (X, f, u, t, Rn), xs, vs, free = step_inputs(x, X0, R, t0)
@@ -1268,11 +1428,28 @@ def test_axis_name_errors():
     obs = tbs.make_sparse_obs(pi, ci, xs[pi, ci], device="cpu")
     with pytest.raises(ValueError, match="not bound"):
         tbs.lm_optimize_sparse(obs, state, targs[3], 1.0, LMConfig(), axis_name="points")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4$"):
-        tba.lm_optimize(*targs, LMConfig(), solver=tba._damped_solve)
+    with pytest.raises(ValueError, match="'cameras' is not bound"):
+        tba.lm_optimize(*targs, LMConfig(), solver=_row_sharded_cg_solver())
     for argv in (["bal", "unused.bal", "--sparse"], ["affine"]):
         with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
             main(argv + ["--shard-points", "2", "--device", "cpu"])
+
+
+def test_2d_rejects_an_indivisible_f_and_an_unknown_mode(fake_world):
+    """F = 12 on a ``cameras`` axis of 8 raises ``ValueError`` naming
+    "divisible" (JAX's ``test_2d_mesh_rejects_indivisible_f``), as does a
+    ``matvec_mode`` other than "all_gather" and "ring" (where JAX's
+    takes the gather), both before any collective."""
+    from mvrecon_tpu_torch.parallel.mesh import make_mesh
+    from mvrecon_tpu_torch.parallel.sharded_ba_2d import sharded_bundle_adjust_2d
+
+    x, X0, K, R, t0, _, _ = problem("dense", 2)
+    with pytest.raises(ValueError, match="divisible"):
+        sharded_bundle_adjust_2d(make_mesh({"points": 1, "cameras": 8}), x, X0, K, R, t0,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="unknown matvec_mode"):
+        sharded_bundle_adjust_2d(make_mesh({"points": 2, "cameras": 4}), x, X0, K, R, t0,
+                                 matvec_mode="tree", device="cpu")
 
 
 def test_calibration_rejects_an_indivisible_point_count(fake_world):
@@ -1382,28 +1559,60 @@ def test_initialize_needs_nccl_for_a_card(monkeypatch):
 
 
 def _guard_collectives(record: dict) -> None:
-    """Count ``all_reduce`` calls (sum only) and record any other
-    collective called through ``torch.distributed``."""
+    """Record every ``all_reduce`` (by its op) and ``batch_isend_irecv``
+    call in ``record["called"]``, and refuse any other collective called
+    through ``torch.distributed`` (recorded too). ``isend`` and ``irecv``
+    are refused when called; a ``P2POp`` built on them, which
+    ``batch_isend_irecv`` runs, gets the real ones."""
     import torch.distributed as dist
 
-    all_reduce = dist.all_reduce
+    all_reduce, batch, p2p_op = dist.all_reduce, dist.batch_isend_irecv, dist.P2POp
+    ops = {dist.ReduceOp.SUM: "sum", dist.ReduceOp.MAX: "max"}
 
     def counted(tensor, op=dist.ReduceOp.SUM, *args, **kwargs):
-        if op != dist.ReduceOp.SUM:
-            record["other"].append(f"all_reduce({op})")
+        record["called"].append(f"all_reduce({ops.get(op, op)})")
         record["all_reduce"] += 1
         return all_reduce(tensor, op, *args, **kwargs)
 
+    def batch_counted(p2p_ops):
+        record["called"].append("batch_isend_irecv")
+        return batch(p2p_ops)
+
     def refused(name):
         def call(*args, **kwargs):
-            record["other"].append(name)
+            record["called"].append(name)
             raise RuntimeError(f"collective {name} called")
         return call
 
-    dist.all_reduce = counted
+    real = {}
     for name in OTHER_COLLECTIVES:
-        if hasattr(dist, name):
+        if hasattr(dist, name) and name != "batch_isend_irecv":
+            real[name] = getattr(dist, name)
             setattr(dist, name, refused(name))
+    wrapped = {getattr(dist, name): real[name] for name in ("isend", "irecv")}
+    dist.all_reduce, dist.batch_isend_irecv = counted, batch_counted
+    dist.P2POp = lambda op, *args, **kwargs: p2p_op(wrapped.get(op, op), *args, **kwargs)
+
+
+def _axis_round_trip(world: int) -> bool:
+    """``all_gather_axis`` and ``ppermute_axis`` (+1, then -1) on a
+    ``cameras`` mesh of every rank, each rank holding the block [r, r+1]."""
+    import torch.distributed as dist
+
+    from mvrecon_tpu_torch.parallel.mesh import bind_axes, make_mesh
+    from mvrecon_tpu_torch.runtime.distributed import all_gather_axis, ppermute_axis
+
+    rank = dist.get_rank()
+    block = torch.tensor([rank, rank + 1.0], dtype=torch.float64)
+    with bind_axes(make_mesh({"cameras": world})):
+        gathered = all_gather_axis(block, "cameras")
+        shifted = ppermute_axis(block, "cameras")
+        back = ppermute_axis(shifted, "cameras", shift=-1)
+    prev = (rank - 1) % world
+    every = torch.arange(world, dtype=torch.float64)
+    return (torch.equal(gathered, torch.stack([every, every + 1.0], dim=1).reshape(-1))
+            and torch.equal(shifted, torch.tensor([prev, prev + 1.0], dtype=torch.float64))
+            and torch.equal(back, block))
 
 
 def _rank_main(port: int, rank: int, world: int, outdir: str) -> None:
@@ -1419,7 +1628,9 @@ def _rank_main(port: int, rank: int, world: int, outdir: str) -> None:
     torch.set_num_threads(1)
     initialize(f"127.0.0.1:{port}", world, rank, platform="cpu")
     meshes = {"points": make_mesh({"points": world}), "hybrid": hybrid_scene_point_mesh(1)}
-    record = {"all_reduce": 0, "other": []}
+    for kind in sorted({v[2] for v in GROUPS[world].values() if v[0] == "2d"}):
+        meshes[kind] = make_mesh(mesh_axes(kind))
+    record = {"all_reduce": 0, "called": []}
     _guard_collectives(record)
     counts = {"k1": 0, "fused": 0}
     accumulate, fused = tbc.syrk_lower_accumulate, tbc._build_system_fused
@@ -1440,10 +1651,14 @@ def _rank_main(port: int, rank: int, world: int, outdir: str) -> None:
     out = {"meta.scene_block": scene_block.numpy(), "meta.round_trip": np.asarray(
         block.shape == (5, 2)
         and np.array_equal(gather_array(meshes["points"], block, ("points",)).numpy(), arr)
-        and np.array_equal(replicate_array(meshes["points"], arr, "cpu").numpy(), arr))}
+        and np.array_equal(replicate_array(meshes["points"], arr, "cpu").numpy(), arr)),
+        "meta.axis_round_trip": np.asarray(_axis_round_trip(world))}
     for case, (core, _, mesh_kind, _) in GROUPS[world].items():
         counts.update(k1=0, fused=0)
-        if core == "cli":
+        record["called"] = []
+        if core == "2d":
+            res = run_port_2d(case, world, meshes[mesh_kind], meshes["points"])
+        elif core == "cli":
             res = run_cli(case, world, outdir)
         elif core in NEW_CORES:
             res = run_port_new(case, world, meshes[mesh_kind])
@@ -1451,12 +1666,12 @@ def _rank_main(port: int, rank: int, world: int, outdir: str) -> None:
             res = run_port(case, world, meshes[mesh_kind])
         else:
             res = run_port_more(case, world, meshes[mesh_kind])
-        res.update(k1_calls=counts["k1"], fused_builds=counts["fused"])
+        res.update(k1_calls=counts["k1"], fused_builds=counts["fused"],
+                   collectives=np.array(sorted(set(record["called"])), dtype=str))
         out.update({f"{case}.{k}": v for k, v in res.items()})
     n_pad = 199 if world == 3 else 201
     out["meta.rows_per_rank"] = np.asarray(-(-n_pad // world))
     out["meta.all_reduce_calls"] = np.asarray(record["all_reduce"])
-    out["meta.other_collectives"] = np.array(record["other"], dtype=str)
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
     import torch.distributed as dist
 
