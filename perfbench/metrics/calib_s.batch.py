@@ -1,0 +1,8 @@
+"""calib_s.batch: the self-calibration stage's wall (between two device
+synchronizations, the pipeline's stage timer) summed over the window's
+batches, over the batches."""
+
+
+def read(run):
+    s = run.stages.get("perspective_self_calibration")
+    return s / run.units if s is not None and run.units else None
