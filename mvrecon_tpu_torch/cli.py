@@ -17,8 +17,16 @@ bundle-adjusts a problem read from disk (a BAL file or a COLMAP model),
 
 Every subcommand takes ``--log-json FILE`` (append the record),
 ``--profile DIR`` (a ``torch.profiler`` trace of the run) and ``--viz``
-(matplotlib plots of a synthetic scene's result). Runs on the card unless
-``--device`` says otherwise. The JAX package's ``--platform`` and
+(matplotlib plots of a synthetic scene's result). Under ``--profile``,
+``bal --sparse`` (with or without ``--shard-points``) also times the
+sparse core's spans (``runtime.profiling.EventTimer``: ``build`` and its
+``state``, ``point_side`` and ``camera_side``, ``matvec``, ``host_read``),
+which then lie beside the kernels in the trace, and the record carries
+``span_ms``, the total milliseconds of each span by name.
+``stage_walls_s`` holds the pipeline's outermost stages alone, which add
+up to the run; the calibration's inner stages (``projective_depths``,
+``kr_eigh``, ``subspace_eigh``) are only ranges of the ``--profile``
+trace. Runs on the card unless ``--device`` says otherwise. The JAX package's ``--platform`` and
 ``--num-cpu-devices`` (XLA switches) have ``--device`` as counterpart.
 
 ``--shard-points N`` splits the points of ``euclidean``, ``affine``,
@@ -369,13 +377,16 @@ def _cmd_bal_sparse(args, out: dict, dev, dt) -> None:
     it (from the file's points or a DLT triangulation), and PLY and BAL are
     written from the list; the record carries the JAX package's keys. With
     ``--shard-points`` the list stays on the host and each rank runs its
-    block of the partition (``sharded_bundle_adjust_sparse``)."""
+    block of the partition (``sharded_bundle_adjust_sparse``). Under
+    ``--profile`` the core's spans are timed and their totals go to
+    ``span_ms``."""
     import os
 
     from .config import LMConfig, as_tensor
     from .models.bundle_adjustment_sparse import SparseObs, bundle_adjust_sparse
     from .ops.triangulation import triangulate_sparse
     from .runtime import io
+    from .runtime.profiling import EventTimer
 
     if os.path.isdir(args.input):
         raise SystemExit("--sparse reads BAL files; COLMAP models load dense "
@@ -396,9 +407,11 @@ def _cmd_bal_sparse(args, out: dict, dev, dt) -> None:
     dist = None if args.ignore_distortion else dev_t(d["distortion"])
     K0, R0, t0 = dev_t(d["K"]), dev_t(d["R"]), dev_t(d["t"])
     sharded = _shard_count(args)
+    timer = EventTimer(dev) if args.profile else None
     kw = dict(f0=f0, axis="x-up_z-forward", config=cfg, cg_max_iter=args.cg_max_iter,
               distortion=dist, factor_dtype="bfloat16" if args.bf16_factors else None,
-              factor_mode="recompute" if args.recompute_factors else "stored", device=dev)
+              factor_mode="recompute" if args.recompute_factors else "stored", device=dev,
+              timer=timer)
     def idx(key):
         return torch.from_numpy(d[key].astype(np.int32)).to(dev)
 
@@ -429,6 +442,8 @@ def _cmd_bal_sparse(args, out: dict, dev, dt) -> None:
                observations=int(d["point_idx"].shape[0]), ba_iterations=int(res.n_iter),
                cg_iterations=int(res.log["cg_iters_total"]),
                reprojection_error=float(res.error))
+    if timer is not None:
+        out["span_ms"] = {k: sum(v) for k, v in timer.ms().items()}
     if not _lead(args):
         return
     dmat = None if res.distortion is None else res.distortion.cpu().numpy()

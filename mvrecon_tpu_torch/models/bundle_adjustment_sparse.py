@@ -79,7 +79,6 @@ the same branches.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -88,6 +87,7 @@ import torch
 
 from ..config import LMConfig, as_tensor, resolve_device
 from ..ops.linalg import inv9_spd
+from ..runtime.profiling import span
 from .bundle_adjustment import (
     BAResult,
     BAState,
@@ -413,10 +413,6 @@ class _State(NamedTuple):
     w: torch.Tensor | None
 
 
-def _span(pb: _Problem, name: str):
-    return contextlib.nullcontext() if pb.timer is None else pb.timer.span(name)
-
-
 def _chunk_factors(pb: _Problem, st: _State, ch: _Chunk, dt, perm=None):
     """(a1, a2, b1, b2, res, w) of a chunk, its columns in the order
     ``perm`` (local indices) when given: the stored rows, upcast, or
@@ -571,7 +567,7 @@ def _ft_cam_rows(pb: _Problem, st: _State, w_p: torch.Tensor) -> torch.Tensor:
 def _schur_matvec(pb: _Problem, st: _State, sy: _System, free, v: torch.Tensor) -> torch.Tensor:
     """S v for the damped, gauge-projected Schur complement, matrix-free,
     O(n_obs); identity on the gauge-fixed coordinates."""
-    with _span(pb, "matvec"):
+    with span(pb.timer, "matvec"):
         vm = (v * free).view(pb.nf, 9)
         w_p = _sym3_matvec(sy.einv6, _f_point_rows(pb, st, vm.reshape(-1)))
         fe_fv = _ft_cam_rows(pb, st, w_p)
@@ -580,13 +576,14 @@ def _schur_matvec(pb: _Problem, st: _State, sy: _System, free, v: torch.Tensor) 
         return sv + (1.0 - free) * v
 
 
-def _pcg(matvec, precond, b, tol: float, max_iter: int, x0=None):
+def _pcg(matvec, precond, b, tol: float, max_iter: int, x0=None, timer=None):
     """Preconditioned conjugate gradients with the relative-residual stop
     ||r||^2 <= tol^2 ||b||^2. ``x0`` warm-starts (one extra matvec for the
     true initial residual). The host reads the convergence flag every
     ``_CG_CHECK`` iterations; a converged iteration keeps x, r and p (zero
     step) and is not counted, so (x, count) equal a loop that stops at
-    once. Returns (x, iterations)."""
+    once. Each host read (the flag, the final count) is a ``host_read``
+    span of ``timer``. Returns (x, iterations)."""
     tol2 = (tol * tol) * torch.clamp_min(torch.dot(b, b), 1e-30)
     if x0 is None:
         x, r = torch.zeros_like(b), b
@@ -597,8 +594,11 @@ def _pcg(matvec, precond, b, tol: float, max_iter: int, x0=None):
     active = torch.dot(r, r) > tol2
     n_iter = torch.zeros((), dtype=torch.int64, device=b.device)
     for k in range(max_iter):
-        if k % _CG_CHECK == 0 and not bool(active):
-            break
+        if k % _CG_CHECK == 0:
+            with span(timer, "host_read"):
+                stop = not bool(active)
+            if stop:
+                break
         ap = matvec(p)
         pap = torch.dot(p, ap)
         rz = torch.dot(r, z)
@@ -611,7 +611,9 @@ def _pcg(matvec, precond, b, tol: float, max_iter: int, x0=None):
         z = torch.where(active, z1, z)
         n_iter += active
         active = active & (torch.dot(r, r) > tol2)
-    return x, int(n_iter)
+    with span(timer, "host_read"):
+        n_iter = int(n_iter)
+    return x, n_iter
 
 
 def _weights_fn(pb: _Problem, cam: BAState, X: torch.Tensor, dist):
@@ -681,9 +683,13 @@ def lm_optimize_sparse(
     them chunk by chunk, the same operator in another summation order.
     ``matvec_chunk`` chunks the CG matvec and back-substitution (default:
     the whole list in stored mode, ``obs_chunk`` in recompute mode).
-    ``timer`` (``runtime.profiling.EventTimer``) records the spans "build",
-    "cg", "matvec" and "trial". ``plans`` caches the chunk plans across
-    calls on one list.
+    ``timer`` (``runtime.profiling.EventTimer``) records the spans
+    "build" (once an LM iteration around "state", the factor rows, and
+    "point_side", the point blocks and gradient; once a retry around
+    "camera_side", the damped camera system), "matvec" (each PCG matvec)
+    and "host_read" (each blocking read: PCG's convergence flag and count,
+    the retry's decision). ``plans`` caches the chunk plans across calls
+    on one list.
 
     ``axis_name``: the list is this rank's block of a point-partitioned
     list (``parallel/sharded_ba_sparse.py``), ``state0.X`` its points, and
@@ -719,33 +725,32 @@ def lm_optimize_sparse(
     n_iter = n_retries = cg_total = 0
     done = False
     while n_iter < config.max_iter:
-        with _span(pb, "build"):
-            st = _state_of(pb, cam, X, dist)
-            ps = _point_side(pb, st)
+        with span(timer, "build"):
+            with span(timer, "state"):
+                st = _state_of(pb, cam, X, dist)
+            with span(timer, "point_side"):
+                ps = _point_side(pb, st)
         accepted = False
         tries = 0
         e_base = ps.e_w if huber_delta is not None else e_prev
         delta_prev = None
         while not accepted and tries < config.max_inner_retries:
-            with _span(pb, "build"):
+            with span(timer, "build"), span(timer, "camera_side"):
                 sy = _camera_side(pb, st, ps, free, c)
-            with _span(pb, "cg"):
-                delta_xi, cg_iters = _pcg(
-                    lambda v: _schur_matvec(pb, st, sy, free, v),
-                    lambda v: torch.einsum("fij,fj->fi", sy.m_inv, v.view(nf, 9)).reshape(-1),
-                    sy.rhs, cg_tol, cg_max_iter, x0=delta_prev)
+            delta_xi, cg_iters = _pcg(
+                lambda v: _schur_matvec(pb, st, sy, free, v),
+                lambda v: torch.einsum("fij,fj->fi", sy.m_inv, v.view(nf, 9)).reshape(-1),
+                sy.rhs, cg_tol, cg_max_iter, x0=delta_prev, timer=timer)
             delta_xi = delta_xi * free
             # back-substitute the points: delta_X = -Einv (F delta + d_P)
             delta_X = -_sym3_matvec(sy.einv6, _f_point_rows(pb, st, delta_xi) + ps.d_P)
             X_new = X + delta_X
             trial_cam = _apply_update(cam, delta_xi, cam.X)
-            with _span(pb, "trial"):
-                if remat:
-                    e_trial = _trial_error(pb, trial_cam, X_new, dist,
-                                           _weights_fn(pb, cam, X, dist))
-                else:
-                    e_trial = _trial_error(pb, trial_cam, X_new, dist,
-                                           lambda ch: st.w[ch.start:ch.end])
+            if remat:
+                e_trial = _trial_error(pb, trial_cam, X_new, dist, _weights_fn(pb, cam, X, dist))
+            else:
+                e_trial = _trial_error(pb, trial_cam, X_new, dist,
+                                       lambda ch: st.w[ch.start:ch.end])
             acc_t = e_trial <= e_base
             pred = None
             if nielsen:
@@ -760,9 +765,10 @@ def lm_optimize_sparse(
             cg_total += cg_iters
             # the one host read of the retry: accepted, converged if so, and
             # whether the step is finite
-            accepted, done, finite = torch.stack(
-                [acc_t, torch.abs(e_trial - e_base) <= config.delta_tol,
-                 torch.isfinite(delta_xi).all()]).tolist()
+            flags = torch.stack([acc_t, torch.abs(e_trial - e_base) <= config.delta_tol,
+                                 torch.isfinite(delta_xi).all()])
+            with span(timer, "host_read"):
+                accepted, done, finite = flags.tolist()
             # the retry warm-starts from the rejected step; a non-finite one
             # (a float32 preconditioner block that is not positive definite
             # at small damping gives NaN) would poison every later retry

@@ -35,7 +35,6 @@ six for the FOV Gauss-Newton steps.
 
 from __future__ import annotations
 
-import contextlib
 import queue
 import threading
 
@@ -44,6 +43,7 @@ import torch
 
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
 from ..ops.syrk import syrk
+from ..runtime.profiling import span
 from .bundle_adjustment import (
     BAResult,
     BAState,
@@ -71,18 +71,21 @@ from .bundle_adjustment import (
 
 def _accumulate_chunk(accs, cam: BAState, X_c, x_c, vis_c, free, c: float, f0: float,
                       huber_delta=None, robust_kind: str = "huber", dist=None,
-                      model: str | None = None):
+                      model: str | None = None, timer=None):
     """Fold one chunk's damped Schur/gradient contributions into the
     accumulators (schur, b, G, d_F, E) and return them. With
     ``huber_delta`` the blocks and the error are IRLS-weighted at the
     current state; with ``dist`` they go through the distortion model.
-    The chunk's Schur term is K1's product of the K-major Y."""
+    The chunk's Schur term is K1's product of the K-major Y; ``timer``
+    records it, with its mirror and its fold into the sum, as a ``k1``
+    span."""
     schur_acc, b_acc, g_acc, df_acc, e_acc = accs
     d_P, d_F, matE, matF, matG, e_chunk = _chunk_blocks(cam, X_c, x_c, vis_c, free, f0,
                                                         huber_delta, robust_kind, dist, model)
     y_t, yd = _damped_schur_factor(matE, matF, d_P, c)
     del matF
-    schur_acc = schur_acc + syrk(y_t.T)
+    with span(timer, "k1"):
+        schur_acc = schur_acc + syrk(y_t.T)
     b_acc = b_acc + y_t @ yd.reshape(-1)
     return (schur_acc, b_acc, g_acc + matG, df_acc + d_F, e_acc + e_chunk)
 
@@ -123,7 +126,10 @@ class _ChunkFeed:
     streams, no thread.
 
     With ``timer`` (an ``EventTimer``) every copy is recorded as an
-    ``h2d`` span on the copy stream."""
+    ``h2d`` span on the copy stream, and two waits as spans on the
+    compute stream: ``feed_wait``, the consumer's wait for a filled slot
+    (in the serial feed, the filling itself), and ``copy_wait``, the
+    compute stream's wait for the slot's copy to land."""
 
     def __init__(self, x_host, vis_host, chunk_size: int, dtype: torch.dtype,
                  device: torch.device, prefetch: int = 2, timer=None):
@@ -174,7 +180,7 @@ class _ChunkFeed:
         lo, hi = self._fill(i, stage[0].numpy(), stage[1].numpy())
         with torch.cuda.device(self.device), torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(self._released[slot])  # the consumer is done with it
-            with self.timer.span("h2d") if self.timer is not None else contextlib.nullcontext():
+            with span(self.timer, "h2d"):
                 for d, s in zip(dev, stage):
                     d.copy_(s, non_blocking=True)
             self._copied[slot].record(self._copy_stream)
@@ -189,12 +195,14 @@ class _ChunkFeed:
 
         def consume(item):
             lo, hi, slot = item
-            compute.wait_event(self._copied[slot])
+            with span(self.timer, "copy_wait"):
+                compute.wait_event(self._copied[slot])
             return lo, hi, *self._dev[slot]
 
         if self.prefetch == 0:
             for i in range(self.n_chunks):
-                item = self._stage(i, 0)
+                with span(self.timer, "feed_wait"):
+                    item = self._stage(i, 0)
                 yield consume(item)
                 self._released[0].record(compute)
             return
@@ -224,7 +232,8 @@ class _ChunkFeed:
         th.start()
         try:
             for _ in range(self.n_chunks):
-                item = ready.get()
+                with span(self.timer, "feed_wait"):
+                    item = ready.get()
                 if isinstance(item, BaseException):
                     raise item
                 yield consume(item)
@@ -275,7 +284,9 @@ def bundle_adjust_streamed(
 
     ``prefetch``: chunks copied ahead of the computation (0 = serial);
     the results are identical either way. ``timer`` (an ``EventTimer``)
-    records ``pass1``, ``pass2`` and ``h2d`` spans on the card.
+    records ``pass1``, ``pass2``, ``k1`` (each K1 product with its fold
+    into the sum) and the feed's ``h2d``, ``feed_wait`` and ``copy_wait``
+    spans on the card.
 
     ``distortion`` / ``config.distortion_rounds``: any distortion family,
     held fixed or alternated with its refit as in the dense core; each
@@ -335,9 +346,6 @@ def bundle_adjust_streamed(
             cur = _refit_solve(terms, cur, model, round_, config.distortion_shared)
         return cur
 
-    def span(name):
-        return timer.span(name) if timer is not None else contextlib.nullcontext()
-
     def lm_segment(cam, X_dev, c, max_iter, dist):
         """The LM outer/retry protocol over streamed chunks."""
         e_prev = float(error_of(cam, X_dev, dist))
@@ -352,18 +360,18 @@ def bundle_adjust_streamed(
                 tries += 1
                 n_retries += 1
                 # pass 1: accumulate the damped reduced system over chunks
-                with span("pass1"):
+                with span(timer, "pass1"):
                     accs = zeros_accs()
                     for lo, hi, x_c, vis_c in feed:
                         accs = _accumulate_chunk(accs, cam, get_X_chunk(X_dev, lo, hi), x_c,
                                                  vis_c, free, c, f0, huber_delta, robust_kind,
-                                                 dist, model)
+                                                 dist, model, timer)
                     delta_xi, e_w = _assemble_and_solve(accs, free, c)
                     del accs
                 trial_cam = _apply_update(cam, delta_xi, no_points)
 
                 # pass 2: back-substitute point updates + trial error
-                with span("pass2"):
+                with span(timer, "pass2"):
                     X_parts = []
                     e_trial = torch.zeros((), dtype=dt, device=dev)
                     for lo, hi, x_c, vis_c in feed:

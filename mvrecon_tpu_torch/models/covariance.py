@@ -35,7 +35,6 @@ plain or IRLS-weighted.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -45,6 +44,7 @@ import torch
 from ..config import LMConfig, as_tensor, resolve_device
 from ..ops.lanes import lane_view
 from ..ops.linalg import inv3x3
+from ..runtime.profiling import span
 from .bundle_adjustment import (
     BAState,
     _chunk_blocks,
@@ -310,7 +310,8 @@ def ba_covariance_streamed(
     the Schur accumulation, then the point blocks. The working dtype is
     ``dtype`` (float32 unless asked, as in the JAX package), whatever
     x_host's is. ``n_obs`` is counted from the host mask. ``timer`` (an
-    ``EventTimer``) records ``pass1`` and ``pass2`` spans on the card."""
+    ``EventTimer``) records ``pass1`` and ``pass2`` spans on the card, and
+    the feed's ``h2d``, ``feed_wait`` and ``copy_wait``."""
     huber_delta, robust_kind = _robust_args(config)
     dev = resolve_device(device)
     x_host = np.asarray(x_host)
@@ -333,10 +334,7 @@ def ba_covariance_streamed(
             return X0[lo:hi]
         return torch.cat([X0[lo:hi], X0.new_zeros((feed.chunk - (hi - lo), 3))])
 
-    def span(name):
-        return timer.span(name) if timer is not None else contextlib.nullcontext()
-
-    with span("pass1"):
+    with span(timer, "pass1"):
         accs = _zero_accs(nf, dtype, dev)
         for lo, hi, x_c, vis_c in feed:
             accs = _cov_accumulate_chunk(accs, cam, X_chunk(lo, hi), x_c, vis_c, free, f0,
@@ -346,7 +344,7 @@ def ba_covariance_streamed(
         a_inv = _finish_schur_inverse(schur, g, free)
         del schur
     sigma2, scale2 = _noise_scale(e, n_obs, npts, free)
-    with span("pass2"):
+    with span(timer, "pass2"):
         point_cov_n = torch.cat([
             _cov_point_chunk(cam, X_chunk(lo, hi), x_c, vis_c, free, f0, a_inv, scale2,
                              huber_delta, robust_kind, dist, model)[: hi - lo]

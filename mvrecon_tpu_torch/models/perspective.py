@@ -38,6 +38,7 @@ from ..ops.lanes import keep
 from ..ops.linalg import det3x3, eigh, inv3x3, min_eigvec_sym, polar_orthogonal3, svd
 from ..ops.moments import fourth_moment_matrix, sym_expand, sym_reduce
 from ..ops.rotations import unit_vec
+from ..runtime.profiling import stage
 
 STATUS_OK = 0
 STATUS_MAX_ITER = 1  # the depth iteration hit max_iter
@@ -75,16 +76,21 @@ def _sign_fix(xi: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.sum(xi, dim=-1, keepdim=True) < 0, -xi, xi)
 
 
-def _top_eigvec(mat: torch.Tensor) -> torch.Tensor:
-    """Leading eigenvector of a batch of symmetric matrices (..., N, N)."""
-    return eigh(mat)[1][..., -1]
+def _top_eigvec(mat: torch.Tensor, timer=None) -> torch.Tensor:
+    """Leading eigenvector of a batch of symmetric matrices (..., N, N);
+    the ``eigh`` is a ``kr_eigh`` stage of ``timer``."""
+    with stage(timer, "kr_eigh"):
+        vecs = eigh(mat)[1]
+    return vecs[..., -1]
 
 
-def _top_eigvec_lowrank(y: torch.Tensor) -> torch.Tensor:
+def _top_eigvec_lowrank(y: torch.Tensor, timer=None) -> torch.Tensor:
     """Leading eigenvector of the PSD Gram A = Y Y^T from its thin factor
-    Y (..., N, r): eigh of the r x r Gram Y^T Y plus one matvec."""
+    Y (..., N, r): eigh of the r x r Gram Y^T Y (a ``kr_eigh`` stage of
+    ``timer``) plus one matvec."""
     gram = torch.einsum("...na,...nb->...ab", y, y)
-    vecs = eigh(gram)[1]
+    with stage(timer, "kr_eigh"):
+        vecs = eigh(gram)[1]
     xi = torch.einsum("...na,...a->...n", y, vecs[..., -1])
     return xi / torch.linalg.norm(xi, dim=-1, keepdim=True)
 
@@ -131,20 +137,25 @@ def _kr_xi(v4: torch.Tensor, xn: torch.Tensor, vec: torch.Tensor) -> torch.Tenso
     return torch.sum(m * xn, dim=-2)
 
 
-def _rank4_subspace_gram(wm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _rank4_subspace_gram(wm: torch.Tensor, timer=None
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Leading rank-4 left/right subspaces of wm (..., 3F, P) from the eigh
-    of the smaller Gram. Returns (u4 (..., 3F, 4), v4 (..., P, 4),
-    sigma4 (..., 4)), descending."""
+    of the smaller Gram (a ``subspace_eigh`` stage of ``timer``). Returns
+    (u4 (..., 3F, 4), v4 (..., P, 4), sigma4 (..., 4)), descending."""
     m, n = wm.shape[-2:]
     tiny = torch.finfo(wm.dtype).tiny
     wt = wm.transpose(-1, -2)
     if m <= n:
-        evals, evecs = eigh(wm @ wt)
+        gram = wm @ wt
+        with stage(timer, "subspace_eigh"):
+            evals, evecs = eigh(gram)
         u4 = evecs[..., -4:].flip(-1)
         sigma4 = torch.sqrt(evals[..., -4:].flip(-1).clamp_min(0.0))
         v4 = (wt @ u4) / sigma4.clamp_min(tiny)[..., None, :]
     else:
-        evals, evecs = eigh(wt @ wm)
+        gram = wt @ wm
+        with stage(timer, "subspace_eigh"):
+            evals, evecs = eigh(gram)
         v4 = evecs[..., -4:].flip(-1)
         sigma4 = torch.sqrt(evals[..., -4:].flip(-1).clamp_min(0.0))
         u4 = (wm @ v4) / sigma4.clamp_min(tiny)[..., None, :]
@@ -156,15 +167,16 @@ def _data_matrix(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(w.shape[:-2] + (-1,)).transpose(-1, -2)
 
 
-def _depth_step_primary(xh, z, f0: float, eig_method: str = "eigh"):
+def _depth_step_primary(xh, z, f0: float, eig_method: str = "eigh", timer=None):
     """One primary-method depth update: per-point F x F Rayleigh-quotient
-    eigenproblem over the rank-4 motion subspace."""
+    eigenproblem over the rank-4 motion subspace. ``timer`` takes the
+    ``kr_eigh`` and ``subspace_eigh`` stages."""
     nf = xh.shape[-2]
     w = xh * z[..., None]  # (..., P, F, 3)
     w = w / torch.linalg.norm(w.reshape(w.shape[:-2] + (-1,)), dim=-1)[..., None, None]
     wm = _data_matrix(w)  # (..., 3F, P)
     if eig_method == "lowrank":
-        u4 = _rank4_subspace_gram(wm)[0]
+        u4 = _rank4_subspace_gram(wm, timer)[0]
         s = u4.transpose(-1, -2) @ wm
     else:
         u, sigma, vt = svd(wm)
@@ -176,17 +188,18 @@ def _depth_step_primary(xh, z, f0: float, eig_method: str = "eigh"):
     xnorm = torch.linalg.norm(xh, dim=-1)  # (..., P, F)
 
     if eig_method == "lowrank":
-        xi = _top_eigvec_lowrank(xdotu / xnorm[..., None])
+        xi = _top_eigvec_lowrank(xdotu / xnorm[..., None], timer)
     else:
         denom = torch.einsum("...pfa,...pga->...pfg", xdotu, xdotu)
-        xi = _top_eigvec(denom / (xnorm[..., :, None] * xnorm[..., None, :]))
+        xi = _top_eigvec(denom / (xnorm[..., :, None] * xnorm[..., None, :]), timer)
     z_new = _sign_fix(xi) / xnorm
     return z_new, reprojection_error(xh, u4, s, f0)
 
 
-def _depth_step_dual(xh, z, f0: float, eig_method: str = "eigh"):
+def _depth_step_dual(xh, z, f0: float, eig_method: str = "eigh", timer=None):
     """One dual-method depth update: per-image P x P eigenproblem over the
-    rank-4 shape subspace."""
+    rank-4 shape subspace (the 12 x 12 Khatri-Rao Gram with ``lowrank``).
+    ``timer`` takes the ``kr_eigh`` and ``subspace_eigh`` stages."""
     npts, nf = xh.shape[-3], xh.shape[-2]
     wt = (xh * z[..., None]).movedim(-3, -1)  # (..., F, 3, P)
     norm_sq = torch.sum(wt * wt, dim=(-2, -1))
@@ -194,7 +207,7 @@ def _depth_step_dual(xh, z, f0: float, eig_method: str = "eigh"):
 
     wm = _data_matrix(w)  # (..., 3F, P)
     if eig_method == "lowrank":
-        v4 = _rank4_subspace_gram(wm)[1]
+        v4 = _rank4_subspace_gram(wm, timer)[1]
     else:
         u, sigma, vt = svd(wm)
         v4 = vt[..., :4, :].transpose(-1, -2)
@@ -207,9 +220,11 @@ def _depth_step_dual(xh, z, f0: float, eig_method: str = "eigh"):
         # factor Y[f, p, (k, i)] = V4[p, k] X[f, i, p] / xnorm[f, p]
         xn = xt / xnorm[..., None, :]
         if _kr_chunk(npts, nf, xh.element_size()) >= npts:
-            xi_t = _top_eigvec_lowrank(_kr_factor(v4, xn).transpose(-1, -2))
+            xi_t = _top_eigvec_lowrank(_kr_factor(v4, xn).transpose(-1, -2), timer)
         else:
-            vecs = eigh(_kr_gram(v4, xn))[1]
+            gram = _kr_gram(v4, xn)
+            with stage(timer, "kr_eigh"):
+                vecs = eigh(gram)[1]
             xi_t = _kr_xi(v4, xn, vecs[..., -1])
             xi_t = xi_t / torch.linalg.norm(xi_t, dim=-1, keepdim=True)
             # per-image deterministic sign: the eigensolver's is arbitrary
@@ -219,7 +234,7 @@ def _depth_step_dual(xh, z, f0: float, eig_method: str = "eigh"):
         v_gram = v4 @ v4.transpose(-1, -2)  # (..., P, P)
         x_gram = torch.einsum("...fip,...fiq->...fpq", xt, xt)  # (..., F, P, P)
         b = v_gram[..., None, :, :] * x_gram / (xnorm[..., :, None] * xnorm[..., None, :])
-        xi_t = _top_eigvec(b)  # (..., F, P)
+        xi_t = _top_eigvec(b, timer)  # (..., F, P)
     z_new = _sign_fix(xi_t.transpose(-1, -2)) / xnorm.transpose(-1, -2)
 
     if eig_method == "lowrank":
@@ -242,6 +257,7 @@ def projective_depths(
     method: str = "primary",
     max_iter: int | None = None,
     eig_method: str = "eigh",
+    timer=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Iterate projective depths z (..., P, F) until the factorization's
     RMS reprojection error < tolerance (do-while; max_iter 200 primary / 50
@@ -249,7 +265,12 @@ def projective_depths(
     the tolerance, is NaN, or its count reaches max_iter, and then keeps
     its z and error while the others go on. ``eig_method="power"`` is the
     JAX package's older name for ``"lowrank"``. Returns (z, final_error,
-    n_iters), the last two per lane."""
+    n_iters), the last two per lane.
+
+    ``timer`` (a ``StageTimer``) takes the loop, with its host read an
+    iteration, as the ``projective_depths`` stage, and inside it each
+    step's eigenproblems as ``kr_eigh`` (the per-point or per-image top
+    eigenvector) and ``subspace_eigh`` (the rank-4 subspace Gram)."""
     max_iter = _depth_max(method, max_iter)
     if eig_method == "power":
         eig_method = "lowrank"
@@ -262,14 +283,15 @@ def projective_depths(
     e = torch.full(batch, float("inf"), dtype=xh.dtype, device=xh.device)
     iters = torch.zeros(batch, dtype=torch.int64, device=xh.device)
     run = torch.ones(batch, dtype=torch.bool, device=xh.device)
-    for count in range(1, max_iter + 1):
-        z_new, e_new = step(xh, z, f0, eig_method)
-        z, e = keep(run, z_new, z), keep(run, e_new, e)
-        iters = iters + run
-        # NaN stops a lane, as the JAX loop's (e >= tol) test does
-        run = run & (e >= tolerance) & (count < max_iter)
-        if not bool(run.any()):  # the one host read of the iteration
-            break
+    with stage(timer, "projective_depths"):
+        for count in range(1, max_iter + 1):
+            z_new, e_new = step(xh, z, f0, eig_method, timer)
+            z, e = keep(run, z_new, z), keep(run, e_new, e)
+            iters = iters + run
+            # NaN stops a lane, as the JAX loop's (e >= tol) test does
+            run = run & (e >= tolerance) & (count < max_iter)
+            if not bool(run.any()):  # the one host read of the iteration
+                break
     return z, e, iters
 
 
@@ -485,13 +507,19 @@ def perspective_self_calibration(
     upgrade_max_iter: int = 100,
     eig_method: str = "eigh",
     device=None,
+    timer=None,
 ) -> CalibrationResult:
     """Full perspective self-calibration of observations x (..., F, P, 2),
     ending with the ``"predict"`` world-axis correction. Runs on the card
     unless ``device`` says otherwise; the working dtype is x's. With
     leading scene dimensions every scene is calibrated on its own, and
     ``status`` and ``depth_iters`` are per-scene tensors; for one scene
-    they are ints."""
+    they are ints. ``timer`` (a ``StageTimer``) records the stages
+    ``projective_depths``, ``kr_eigh`` and ``subspace_eigh`` (see
+    :func:`projective_depths`; the factorization after the loop adds a
+    ``subspace_eigh`` with ``lowrank``). A timed stage synchronizes the
+    device at both ends; without a timer, or inside an outer stage of a
+    ``StageTimer`` not made ``nested``, each is a profiler range alone."""
     if method not in ("primary", "dual"):
         raise ValueError(f"unknown method: {method}")
     x = as_tensor(x, resolve_device(device), result_dtype(x))
@@ -500,13 +528,13 @@ def perspective_self_calibration(
     xh = homogenize(x, f0)
     z, depth_err, iters = projective_depths(
         xh, f0=f0, tolerance=tol, method=method, max_iter=max_iter,
-        eig_method=eig_method,
+        eig_method=eig_method, timer=timer,
     )
 
     wm = _data_matrix(xh * z[..., None])
     # "power" keeps the SVD factorization here, as in the JAX package
     if eig_method == "lowrank":
-        m, v4, sigma4 = _rank4_subspace_gram(wm)
+        m, v4, sigma4 = _rank4_subspace_gram(wm, timer)
         s = sigma4[..., :, None] * v4.transpose(-1, -2)
     else:
         m, s = factorization_method(wm, n_rank=4)

@@ -4,9 +4,9 @@ Counterpart of ``mvrecon_tpu/models/pipelines.py``: the affine pipeline
 (affine self-calibration, then dense BA), the perspective pipeline
 (self-calibration, then dense BA) and its large-scale variant
 (self-calibration, an optional camera bootstrap on a point subsample, then
-chunked BA), on one device. Each stage is a span of the profiler trace
-(``runtime/profiling.trace_span``) under the JAX package's name, and its
-wall goes to an optional ``StageTimer``. The affine and the dense
+chunked BA), on one device. Each stage is a range of the profiler trace
+(``runtime/profiling.stage``) under the JAX package's name, and its wall
+goes to an optional ``StageTimer``. The affine and the dense
 perspective pipeline take leading scene dimensions, which run as lanes
 (``parallel/batched.py``). The large pipeline can calibrate with the
 points split over a mesh (``mesh``; ``parallel/sharded_calibration.py``).
@@ -20,7 +20,7 @@ import torch
 
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
 from ..ops.triangulation import triangulate
-from ..runtime.profiling import StageTimer, trace_span
+from ..runtime.profiling import StageTimer, stage
 from .affine import affine_self_calibration
 from .bundle_adjustment import bundle_adjust
 from .bundle_adjustment_chunked import bundle_adjust_chunked
@@ -40,11 +40,6 @@ class ReconstructionResult(NamedTuple):
     calib_X: torch.Tensor  # pre-BA points (the self-calibration output)
     status: int | torch.Tensor  # perspective calibration status (0 = ok); 0 for affine
     ba_log: dict | None = None
-
-
-def _stage(timer: StageTimer | None, name: str):
-    """The stage's trace span, timed when there is a timer."""
-    return timer.stage(name) if timer is not None else trace_span(name)
 
 
 def affine_reconstruction(
@@ -77,11 +72,11 @@ def affine_reconstruction(
     x's. ``timer`` records the wall of each stage."""
     dev = resolve_device(device)
     x = as_tensor(x, dev, result_dtype(x))
-    with _stage(timer, "affine_self_calibration"):
+    with stage(timer, "affine_self_calibration"):
         S, R = affine_self_calibration(x, model=model, f=f, canonical_signs=True, device=dev)
     t = -3.0 * R[..., :, :, 2]
     K = torch.eye(3, dtype=x.dtype, device=dev).expand(R.shape)
-    with _stage(timer, "bundle_adjustment"):
+    with stage(timer, "bundle_adjustment"):
         ba = bundle_adjust(
             x.transpose(-3, -2), S, K, R, t, f0=f0, visibility=visibility,
             axis="x-up_z-forward", config=config, device=dev,
@@ -113,14 +108,17 @@ def euclidean_reconstruction(
     calibration keeps the full-visibility contract, so masked x entries
     need finite placeholders. Leading scene dimensions run as lanes. Runs
     on the card unless ``device`` says otherwise; the working dtype is
-    x's. ``timer`` records the wall of each stage."""
+    x's. ``timer`` records the wall of each stage; the calibration's own
+    stages inside it (``perspective_self_calibration``) are timed too when
+    the timer is a ``StageTimer(nested=True)``, and are profiler ranges
+    otherwise."""
     dev = resolve_device(device)
     x = as_tensor(x, dev, result_dtype(x))
-    with _stage(timer, "perspective_self_calibration"):
+    with stage(timer, "perspective_self_calibration"):
         calib = perspective_self_calibration(
-            x, f0=f0, tol=tol, method=method, eig_method=eig_method, device=dev
+            x, f0=f0, tol=tol, method=method, eig_method=eig_method, device=dev, timer=timer
         )
-    with _stage(timer, "bundle_adjustment"):
+    with stage(timer, "bundle_adjustment"):
         ba = bundle_adjust(
             x.transpose(-3, -2), calib.X, calib.K, calib.R, calib.t, f0=f0,
             visibility=visibility, axis="x-up_z-forward", config=config, device=dev,
@@ -173,7 +171,7 @@ def euclidean_reconstruction_large(
     dev = resolve_device(device)
     x = as_tensor(x, dev, result_dtype(x))
 
-    with _stage(timer, "perspective_self_calibration"):
+    with stage(timer, "perspective_self_calibration"):
         if mesh is not None:
             from ..parallel.sharded_calibration import sharded_perspective_self_calibration
 
@@ -187,7 +185,7 @@ def euclidean_reconstruction_large(
     x_pf = x.transpose(0, 1)  # (P, F, 2)
     X_init, K_init, R_init, t_init = calib.X, calib.K, calib.R, calib.t
     if bootstrap_iters > 0:
-        with _stage(timer, "camera_bootstrap_ba"):
+        with stage(timer, "camera_bootstrap_ba"):
             sub = max(int(n_points * bootstrap_frac), min(n_points, 200))
             stride = max(n_points // sub, 1)
             idx = torch.arange(0, stride * sub, stride, device=dev)
@@ -200,10 +198,10 @@ def euclidean_reconstruction_large(
                 axis="x-up_z-forward", config=boot_cfg, chunk_size=min(chunk_size, sub),
                 device=dev,
             )
-        with _stage(timer, "retriangulate"):
+        with stage(timer, "retriangulate"):
             X_init = triangulate(x, boot.K, boot.R, boot.t, f0=f0)
         K_init, R_init, t_init = boot.K, boot.R, boot.t
-    with _stage(timer, "bundle_adjustment"):
+    with stage(timer, "bundle_adjustment"):
         ba = bundle_adjust_chunked(
             x_pf, X_init, K_init, R_init, t_init,
             f0=f0, axis="x-up_z-forward", config=config, chunk_size=chunk_size,

@@ -25,12 +25,11 @@ from ..config import LMConfig, as_tensor, resolve_device, result_dtype
 from ..models.bundle_adjustment import bundle_adjust
 from ..models.pipelines import (
     ReconstructionResult,
-    _stage,
     affine_reconstruction,
     euclidean_reconstruction,
 )
 from ..runtime.distributed import distribute_array
-from ..runtime.profiling import StageTimer
+from ..runtime.profiling import StageTimer, stage
 
 SCENES_AXIS = "scenes"
 
@@ -177,7 +176,7 @@ def batched_euclidean_to_convergence(
         if k == 0:
             break
         idx_b = torch.cat([idx, idx[:1].expand(_bucket(k) - k)])
-        with _stage(timer, "continuation_ba"):
+        with stage(timer, "continuation_ba"):
             r = bundle_adjust(
                 x_pf[idx_b], X[idx_b], K[idx_b], R[idx_b], t[idx_b], f0=f0,
                 axis="x-up_z-forward", config=cont_cfg,

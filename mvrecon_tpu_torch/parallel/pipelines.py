@@ -18,9 +18,9 @@ from __future__ import annotations
 import torch
 
 from ..config import LMConfig, as_tensor, resolve_device, result_dtype
-from ..models.pipelines import ReconstructionResult, _stage
+from ..models.pipelines import ReconstructionResult
 from ..runtime.distributed import distribute_array, gather_array
-from ..runtime.profiling import StageTimer
+from ..runtime.profiling import StageTimer, stage
 from .sharded_affine import affine_self_calibration_block
 from .sharded_ba import POINTS_AXIS, bundle_adjust_block
 from .sharded_calibration import perspective_self_calibration_block, points_block
@@ -49,11 +49,11 @@ def sharded_euclidean_reconstruction(
     otherwise; the working dtype is x's. ``timer`` records the wall of
     each stage."""
     dev = resolve_device(device)
-    with _stage(timer, "sharded_perspective_self_calibration"):
+    with stage(timer, "sharded_perspective_self_calibration"):
         x_l = points_block(mesh, x, dev)  # (F, Pl, 2)
         calib = perspective_self_calibration_block(mesh, x_l, x.shape[1], f0=f0, tol=tol,
                                                    method=method)
-    with _stage(timer, "sharded_bundle_adjustment"):
+    with stage(timer, "sharded_bundle_adjustment"):
         vis_l = None if visibility is None else as_tensor(
             distribute_array(mesh, (POINTS_AXIS,), visibility, dev), dev, result_dtype(x))
         ba = bundle_adjust_block(mesh, x_l.transpose(0, 1), calib.X, vis_l, calib.K, calib.R,
@@ -87,12 +87,12 @@ def sharded_affine_reconstruction(
     ``device`` says otherwise; the working dtype is x's. ``timer`` records
     the wall of each stage."""
     dev = resolve_device(device)
-    with _stage(timer, "sharded_affine_self_calibration"):
+    with stage(timer, "sharded_affine_self_calibration"):
         x_l = points_block(mesh, x, dev)  # (F, Pl, 2)
         S_l, R, ok = affine_self_calibration_block(mesh, x_l, x.shape[1], model=model, f=f)
     t = -3.0 * R[:, :, 2]
     K = torch.eye(3, dtype=x_l.dtype, device=dev).expand(R.shape)
-    with _stage(timer, "sharded_bundle_adjustment"):
+    with stage(timer, "sharded_bundle_adjustment"):
         vis_l = None if visibility is None else as_tensor(
             distribute_array(mesh, (POINTS_AXIS,), visibility, dev), dev, x_l.dtype)
         ba = bundle_adjust_block(mesh, x_l.transpose(0, 1), S_l, vis_l, K, R, t, f0=f0,

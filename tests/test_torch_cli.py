@@ -10,6 +10,8 @@
 - ``bench-ba``, dense and ``--chunked``, under JAX's record keys;
 - ``--profile`` writing a trace that holds the pipeline's spans, and
   ``--viz`` drawing headless;
+- ``bal --sparse --profile`` (and its ``--shard-points 1`` form) timing
+  the sparse core's spans into ``span_ms`` and the trace;
 - every flag of JAX's subcommands but the XLA switches parses
   in the port's same-named subcommand.
 """
@@ -206,6 +208,32 @@ def test_profile_writes_a_trace_and_viz_draws(tmp_path, capsys, monkeypatch):
     assert {"perspective_self_calibration", "bundle_adjustment"} <= names
     assert len(shown) == 2
     plt.close("all")
+
+
+@pytest.mark.parametrize("shard", [False, True], ids=["one", "shard1"])
+def test_bal_sparse_profile_times_the_core_spans(tmp_path, capsys, shard):
+    """Under ``--profile DIR`` the sparse core gets a timer: the record's
+    ``span_ms`` holds its spans' totals, and the trace in DIR holds them
+    as ranges beside the operators."""
+    sc = make_synthetic_scene(jax.random.key(4), n_images=6, dtype=jnp.float64)
+    rng = np.random.default_rng(4)
+    x = np.array(sc.x)
+    vis = (rng.uniform(size=x.shape[1::-1]) > 0.2).astype(np.float64)
+    vis[:, :2] = 1.0
+    X0 = np.asarray(sc.X) + 0.01 * rng.standard_normal(sc.X.shape)
+    path = str(tmp_path / "problem.bal")
+    tio.save_bal(path, x, vis, X0, np.asarray(sc.R), np.asarray(sc.t),
+                 np.asarray(sc.K[:, 0, 0]))
+    prof = tmp_path / "prof"
+    argv = ["bal", path, "--sparse", "--max-iter", "3", "--float64", "--device", "cpu",
+            "--profile", str(prof)] + (["--shard-points", "1"] if shard else [])
+    rec = _run(tcli.main, argv, capsys)
+    spans = {"build", "state", "point_side", "camera_side", "matvec", "host_read"}
+    assert set(rec["span_ms"]) == spans
+    assert all(v > 0 for v in rec["span_ms"].values())
+    assert rec["span_ms"]["state"] + rec["span_ms"]["point_side"] <= rec["span_ms"]["build"]
+    names = {e.get("name") for e in json.loads((prof / TRACE_FILE).read_text())["traceEvents"]}
+    assert spans <= names
 
 
 def _flags(parser):
